@@ -1,0 +1,533 @@
+"""The port's frontier-expansion checker: ``spawn_xla()``.
+
+Counterpart of ``stateright_tpu/xla.py``. The module keeps that name so
+that user code ports by changing one import; no XLA is involved. The
+engine is level-synchronous BFS in PyTorch: each ``_run_block`` expands
+the whole frontier on the device in one superstep —
+
+1. fingerprint the frontier (``ops/fphash.py``);
+2. check the properties (``packed_properties``, first witness = lowest
+   frontier index);
+3. expand the action grid (``packed_step``, ``[F, A, W]``);
+4. compact the grid into candidates in state-major order ``k = f*A + a``
+   (``ops/compact.py``, a CUDA kernel), so array order is semantic order;
+5. fingerprint the candidates;
+6. merge-insert them into the sorted visited set (``ops/sortedset.py``
+   over ``ops/merge.py``, a CUDA kernel); the insert's arange ticket is the
+   reference winner election;
+7. run the terminal pass for eventually-properties;
+8. compact the survivors into the next frontier (``ops/compact.py``).
+
+These are the semantics of the reference package's plane-major superstep
+under ``compaction="pallas"`` with the merge insert, one level per
+dispatch, with its table/frontier/candidate overflow-and-retry protocol:
+a level that overflows any buffer is not committed; the buffer grows and
+the level runs again from the untouched pre-step state.
+
+## PackedModel protocol (batched form)
+
+- ``state_words: int`` — W, 32-bit words per state.
+- ``max_actions: int`` — A, static action-slot count.
+- ``packed_init() -> np.ndarray[N0, W]`` (uint32) — packed initial states.
+- ``packed_step(words[F, W] int64) -> (next[F, A, W] int64, valid[F, A])``.
+- ``packed_properties(words[F, W]) -> bool[F, P]``, ordered as
+  ``properties()``.
+- ``pack(state) / unpack(words)`` — the host codec.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .backend import resolve_device
+from .checker.base import Checker
+from .checker.path import Path
+from .core import Expectation, Model
+from .ops import fphash, sortedset
+from .ops.compact import compact
+from .ops.words import DTYPE, from_u32, to_u32
+
+#: Counter names the engine keeps in ``metrics()``.
+ENGINE_COUNTERS = ("table_grows", "frontier_grows", "cand_grows")
+
+#: The PackedModel protocol surface (module docstring above).
+PACKED_ATTRS = (
+    "state_words",
+    "max_actions",
+    "packed_init",
+    "packed_step",
+    "packed_properties",
+)
+
+#: The bucket ladder's floor: the smallest run capacity a level runs at.
+RUN_BUCKET_FLOOR = 64
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 1).bit_length()
+
+
+def ladder_buckets(frontier_capacity: int) -> List[int]:
+    """Every run bucket the ladder can land on under a frontier-capacity
+    ceiling: powers of four from ``RUN_BUCKET_FLOOR``, with the ceiling
+    itself as the top rung."""
+    out = [min(RUN_BUCKET_FLOOR, frontier_capacity)]
+    while out[-1] < frontier_capacity:
+        out.append(min(out[-1] * 4, frontier_capacity))
+    return out
+
+
+def default_cand_cap(run_cap: int, max_actions: int, backend: str) -> int:
+    """The candidate-buffer capacity a so-far-unseen bucket starts at: the
+    full action grid for small buckets, a power-of-two fraction of it above
+    (a quarter on the CPU, a sixteenth on a card, where each level's cost
+    scales with the candidate width); grown on overflow."""
+    m = run_cap * max_actions
+    if run_cap <= 256:
+        cap = _next_pow2(m)
+    else:
+        den = 4 if backend == "cpu" else 16
+        cap = max(1024, _next_pow2(max(m // den, 1)))
+    return min(cap, _next_pow2(m))
+
+
+class XlaChecker(Checker):
+    """Level-synchronous BFS on a CUDA device (or the CPU, by request). One
+    ``_run_block`` = one BFS level."""
+
+    #: Grow the visited set when the committed unique count passes 3/4 of
+    #: its capacity, before an insert overflows.
+    LOAD_NUM, LOAD_DEN = 3, 4
+    #: Growth-factor clamp for the frontier ladder's jump extrapolation.
+    LADDER_GROWTH_CLAMP = 16.0
+
+    def __init__(
+        self,
+        builder,
+        *,
+        device=None,
+        frontier_capacity: Optional[int] = None,
+        table_capacity: Optional[int] = None,
+        checkpoint: Optional[str] = None,
+    ):
+        model = builder._model
+        missing = [attr for attr in PACKED_ATTRS if not hasattr(model, attr)]
+        if missing:
+            raise TypeError(
+                f"spawn_xla() requires the PackedModel protocol; "
+                f"{type(model).__name__} is missing {missing}"
+            )
+        if getattr(model, "host_verified_properties", ()):
+            raise NotImplementedError(
+                "host-verified properties are not ported yet"
+            )
+        self._model = model
+        self._device = resolve_device(device)
+        self._backend = self._device.type
+        self._target_state_count = builder._target_state_count
+        self._target_max_depth = builder._target_max_depth
+        self._properties = model.properties()
+        self._prop_names = [p.name for p in self._properties]
+        self._W = model.state_words
+        self._A = model.max_actions
+        self._P = len(self._properties)
+        # Eventually-property bit assignment: position among the eventually
+        # subset (checker.rs:540-547).
+        self._ebit_of_prop: Dict[int, int] = {}
+        for i, p in enumerate(self._properties):
+            if p.expectation == Expectation.EVENTUALLY:
+                self._ebit_of_prop[i] = len(self._ebit_of_prop)
+        self._ebits0 = (1 << len(self._ebit_of_prop)) - 1
+
+        dev = self._device
+        self._disc_found = torch.zeros(self._P, dtype=torch.bool, device=dev)
+        self._disc_fp = torch.zeros((self._P, 2), dtype=DTYPE, device=dev)
+        self._found_names: Dict[str, int] = {}  # name -> fp64, pinned on first find
+        self._target_reached = False
+        self._cand_caps: Dict[int, int] = {}
+        self._counters = {name: 0 for name in ENGINE_COUNTERS}
+        #: {depth, frontier, generated, unique, bucket, cand_cap} per
+        #: committed BFS level.
+        self.level_log: List[Dict[str, int]] = []
+        #: One ``(run_cap, committed_levels)`` per superstep run, 0 for an
+        #: overflow retry; ``sum(committed) == len(level_log)``.
+        self.dispatch_log: List[Tuple[int, int]] = []
+
+        table_capacity = table_capacity or 1 << 20
+        self._frontier_capacity = frontier_capacity or 1 << 15
+        if checkpoint is not None:
+            from .carry import state_from_reference
+            from .checkpoint import load_reference_checkpoint
+
+            arrays, meta = load_reference_checkpoint(checkpoint, model)
+            self._adopt(state_from_reference(arrays, meta, dev, table_capacity))
+            return
+
+        init_packed = np.asarray(model.packed_init(), dtype=np.uint32)
+        keep = [model.within_boundary(model.unpack(row)) for row in init_packed]
+        init_packed = init_packed[keep]
+        n_init = len(init_packed)
+        self._frontier_capacity = max(
+            self._frontier_capacity, 1 << max(n_init.bit_length(), 4)
+        )
+        init_rows = from_u32(init_packed.reshape(n_init, self._W), dev)
+        # Init fingerprints go in with a zero parent (the "no predecessor"
+        # marker, bfs.rs:59-65).
+        ihi, ilo = fphash.fingerprint_words(init_rows)
+        zeros = torch.zeros(n_init, dtype=DTYPE, device=dev)
+        self._table, is_new, ovf = sortedset.insert(
+            sortedset.make(table_capacity, dev), ihi, ilo, zeros, zeros,
+            torch.ones(n_init, dtype=torch.bool, device=dev),
+        )
+        if bool(ovf):
+            raise RuntimeError("visited-set overflow while inserting init states")
+        self._frontier = init_rows
+        self._frontier_ebits = torch.full((n_init,), self._ebits0, dtype=DTYPE, device=dev)
+        self._frontier_count = n_init
+        self._depth = 1  # depth of states in the current frontier (bfs.rs:83)
+        self._max_depth = 0
+        self._state_count = n_init
+        self._unique_count = int(is_new.sum())
+        self._exhausted = n_init == 0
+
+    def _adopt(self, state: Dict[str, Any]) -> None:
+        """Take over a carried search state (``carry.state_from_reference``)."""
+        self._table = state["table"]
+        self._frontier = state["frontier"]
+        self._frontier_ebits = state["frontier_ebits"]
+        self._frontier_count = self._frontier.shape[0]
+        while self._frontier_capacity < self._frontier_count:
+            self._frontier_capacity *= 2
+        for key in ("depth", "max_depth", "state_count", "unique_count",
+                    "exhausted", "target_reached"):
+            setattr(self, f"_{key}", state[key])
+        self._found_names = dict(state["found_names"])
+        for i, name in enumerate(self._prop_names):
+            if name in self._found_names:
+                fp64 = self._found_names[name]
+                self._disc_found[i] = True
+                self._disc_fp[i, 0] = fp64 >> 32
+                self._disc_fp[i, 1] = fp64 & 0xFFFFFFFF
+
+    # --- the superstep ------------------------------------------------------
+
+    def _pin(self, viol, fhi, flo, i, disc_found, disc_fp) -> None:
+        """First-witness election for property ``i``: the lowest frontier
+        index (``argmax`` takes the first maximum; it refuses bool input).
+        Updates ``disc_found``/``disc_fp`` in place; the caller owns them."""
+        has = viol.any()
+        first = torch.argmax(viol.to(torch.uint8))
+        take = has & ~disc_found[i]
+        disc_fp[i, 0] = torch.where(take, fhi[first], disc_fp[i, 0])
+        disc_fp[i, 1] = torch.where(take, flo[first], disc_fp[i, 1])
+        disc_found[i] = disc_found[i] | has
+
+    def _superstep(self, frontier, f_ebits, f_count: int, cand_cap: int):
+        """One BFS level at run bucket ``F = frontier.shape[0]`` from the
+        pre-step state, which it leaves untouched (a level that overflows
+        runs again)."""
+        f_cap = frontier.shape[0]
+        A, W = self._A, self._W
+        dev = self._device
+        model = self._model
+        disc_found, disc_fp = self._disc_found.clone(), self._disc_fp.clone()
+        f_valid = torch.arange(f_cap, device=dev) < f_count
+        fhi, flo = fphash.fingerprint_words(frontier)
+
+        # Properties over the frontier.
+        props = model.packed_properties(frontier)  # [F, P]
+        for i, p in enumerate(self._properties):
+            if p.expectation == Expectation.EVENTUALLY:
+                sat = props[:, i] & f_valid
+                f_ebits = torch.where(sat, f_ebits & ~(1 << self._ebit_of_prop[i]), f_ebits)
+                continue
+            hit = ~props[:, i] if p.expectation == Expectation.ALWAYS else props[:, i]
+            self._pin(hit & f_valid, fhi, flo, i, disc_found, disc_fp)
+
+        # Action grid, compacted in state-major order k = f*A + a.
+        nxt, valid = model.packed_step(frontier)  # [F, A, W], [F, A]
+        valid = valid & f_valid[:, None]
+        step_states = valid.sum()
+        lanes = [nxt[:, :, w] for w in range(W)] + [
+            lane[:, None].expand(f_cap, A) for lane in (fhi, flo, f_ebits)
+        ]
+        grid_out, n_valid = compact(valid, lanes, cand_cap)
+        cvalid = torch.arange(cand_cap, device=dev) < n_valid
+        grid_out = torch.where(cvalid, grid_out, 0)  # unspecified past n_valid
+        ccand, cpar_hi, cpar_lo, cebits = grid_out[:W], grid_out[W], grid_out[W + 1], grid_out[W + 2]
+        chi, clo = fphash.fingerprint_planes(ccand)
+
+        # Dedup against the visited set.
+        table, is_new, table_overflow = sortedset.insert(
+            self._table, chi, clo, cpar_hi, cpar_lo, cvalid
+        )
+        step_unique = is_new.sum()
+
+        # Terminal pass for eventually counterexamples (bfs.rs:374-381).
+        if self._ebit_of_prop:
+            terminal = f_valid & ~valid.any(1)
+            for i, bit in self._ebit_of_prop.items():
+                self._pin(terminal & ((f_ebits >> bit) & 1 == 1), fhi, flo, i,
+                          disc_found, disc_fp)
+
+        # Survivors -> next frontier rows, in semantic order.
+        front_out, new_count = compact(is_new, [*ccand, cebits], f_cap)
+        row_ok = torch.arange(f_cap, device=dev) < new_count
+        front_out = torch.where(row_ok, front_out, 0)
+        new_frontier = front_out[:W].T.contiguous()
+        scalars = torch.stack([
+            step_states, step_unique, new_count,
+            table_overflow.to(DTYPE), (new_count > f_cap).to(DTYPE),
+            (n_valid > cand_cap).to(DTYPE),
+        ]).tolist()
+        return new_frontier, front_out[W], table, disc_found, disc_fp, scalars
+
+    # --- capacities -----------------------------------------------------------
+
+    def _cand_cap_for(self, run_cap: int) -> int:
+        if run_cap not in self._cand_caps:
+            self._cand_caps[run_cap] = default_cand_cap(run_cap, self._A, self._backend)
+        return self._cand_caps[run_cap]
+
+    def _grow_cand_cap(self, run_cap: int) -> None:
+        self._counters["cand_grows"] += 1
+        old = self._cand_cap_for(run_cap)
+        self._cand_caps[run_cap] = min(old * 4, _next_pow2(run_cap * self._A))
+
+    def _grow_table(self) -> None:
+        """Double the visited set: a plain copy."""
+        self._table = sortedset.grow(self._table, self._table.capacity * 2)
+        self._counters["table_grows"] += 1
+
+    def _grow_table_if_loaded(self) -> None:
+        while self._unique_count * self.LOAD_DEN > self._table.capacity * self.LOAD_NUM:
+            self._grow_table()
+
+    def _recent_growth(self) -> Optional[float]:
+        """Frontier growth factor across the last two committed levels, or
+        None when there is no positive-growth signal yet."""
+        if len(self.level_log) < 2:
+            return None
+        a = self.level_log[-2]["frontier"]
+        b = self.level_log[-1]["frontier"]
+        if a <= 0 or b <= a:
+            return None
+        return b / a
+
+    def _grow_frontier(self, run_cap: int) -> int:
+        """Next bucket after a frontier overflow: the next power-of-four
+        rung, or a jump extrapolated from the observed growth (``run_cap *
+        g^2`` forecasts the peak), or past the top bucket a doubled
+        frontier-capacity ceiling."""
+        self._counters["frontier_grows"] += 1
+        if run_cap < self._frontier_capacity:
+            buckets = ladder_buckets(self._frontier_capacity)
+            nxt = next(b for b in buckets if b > run_cap)
+            g = self._recent_growth()
+            if g is not None and g >= 2.0:
+                est_peak = run_cap * min(g, self.LADDER_GROWTH_CLAMP) ** 2
+                nxt = max(nxt, next((b for b in buckets if b >= 4 * est_peak), buckets[-1]))
+            return nxt
+        self._frontier_capacity *= 2
+        return self._frontier_capacity
+
+    def _run_cap_for(self, n: int) -> int:
+        """Smallest ladder bucket with ~4x expansion headroom over the live
+        frontier, clamped to [RUN_BUCKET_FLOOR, frontier_capacity]."""
+        want = max(4 * max(n, 1), RUN_BUCKET_FLOOR)
+        buckets = ladder_buckets(self._frontier_capacity)
+        return next((b for b in buckets if b >= want), buckets[-1])
+
+    def _bucket_inputs(self, run_cap: int):
+        """Pad or slice the stored frontier to this level's bucket."""
+        stored = self._frontier.shape[0]
+        if stored >= run_cap:
+            return self._frontier[:run_cap], self._frontier_ebits[:run_cap]
+        pad = run_cap - stored
+        return (
+            torch.cat([self._frontier, self._frontier.new_zeros((pad, self._W))]),
+            torch.cat([self._frontier_ebits, self._frontier_ebits.new_zeros(pad)]),
+        )
+
+    # --- the level loop -------------------------------------------------------
+
+    def _entry_checks(self) -> bool:
+        """Dispatch preamble; returns False when nothing is left to run.
+        Mirrors the dequeue-time depth bookkeeping (bfs.rs:257-272): a
+        frontier at the target depth is counted in max_depth but skipped."""
+        if self._target_reached or self._exhausted:
+            return False
+        if self._P > 0 and all(n in self._found_names for n in self._prop_names):
+            return False
+        if self._frontier_count == 0:
+            self._exhausted = True
+            return False
+        self._max_depth = max(self._max_depth, self._depth)
+        if self._target_max_depth is not None and self._depth >= self._target_max_depth:
+            self._frontier_count = 0
+            self._exhausted = True
+            return False
+        return True
+
+    def _run_block(self) -> None:
+        """One BFS level, retried after any buffer overflow."""
+        if not self._entry_checks():
+            return
+        run_cap = self._run_cap_for(self._frontier_count)
+        while True:
+            f_in, e_in = self._bucket_inputs(run_cap)
+            cand_cap = self._cand_cap_for(run_cap)
+            nf, ne, table, dfound, dfp, scalars = self._superstep(
+                f_in, e_in, self._frontier_count, cand_cap
+            )
+            d_states, d_unique, ncount, t_ovf, f_ovf, cc_ovf = scalars
+            committed = not (t_ovf or f_ovf or cc_ovf)
+            self.dispatch_log.append((run_cap, int(committed)))
+            if t_ovf:
+                self._grow_table()
+            elif f_ovf:
+                run_cap = self._grow_frontier(run_cap)
+            elif cc_ovf:
+                self._grow_cand_cap(run_cap)
+            else:
+                break
+        self.level_log.append({
+            "depth": self._depth,
+            "frontier": self._frontier_count,
+            "generated": d_states,
+            "unique": d_unique,
+            "bucket": run_cap,
+            "cand_cap": cand_cap,
+        })
+        self._frontier, self._frontier_ebits, self._table = nf, ne, table
+        self._frontier_count = ncount
+        self._disc_found, self._disc_fp = dfound, dfp
+        self._state_count += d_states
+        self._unique_count += d_unique
+        self._depth += 1
+        self._grow_table_if_loaded()
+        self._pin_found_names()
+        if (
+            self._target_state_count is not None
+            and self._state_count >= self._target_state_count
+        ):
+            self._target_reached = True
+
+    def _pin_found_names(self) -> None:
+        """Records first-found witness fingerprints by property name."""
+        found = self._disc_found.tolist()
+        fps = self._disc_fp.tolist()
+        for i, name in enumerate(self._prop_names):
+            if found[i] and name not in self._found_names:
+                self._found_names[name] = (fps[i][0] << 32) | fps[i][1]
+
+    # --- Checker API ----------------------------------------------------------
+
+    def model(self) -> Model:
+        return self._model
+
+    def state_count(self) -> int:
+        return self._state_count
+
+    def unique_state_count(self) -> int:
+        return self._unique_count
+
+    def max_depth(self) -> int:
+        return self._max_depth
+
+    def is_done(self) -> bool:
+        if self._exhausted or self._target_reached:
+            return True
+        if self._P > 0 and all(n in self._found_names for n in self._prop_names):
+            return True
+        return self._frontier_count == 0 and self._state_count > 0
+
+    def metrics(self) -> Dict[str, Any]:
+        cap = self._table.capacity
+        return {
+            **super().metrics(),
+            "engine": "xla",
+            "device": str(self._device),
+            "depth": self._depth,
+            "frontier_count": self._frontier_count,
+            "frontier_capacity": self._frontier_capacity,
+            "table_capacity": cap,
+            "table_occupancy": self._unique_count / cap,
+            "dispatches": len(self.dispatch_log),
+            "levels_committed": sum(c for _, c in self.dispatch_log),
+            **self._counters,
+        }
+
+    def discoveries(self) -> Dict[str, Path]:
+        parents = self._parent_map()
+        return {
+            name: self._path_for(fp64, parents)
+            for name, fp64 in self._found_names.items()
+        }
+
+    def _parent_map(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The visited set's occupied rows on the host as 64-bit ``(keys,
+        parents)``; the keys are sorted already, so a ``searchsorted`` finds
+        a parent with no index to build."""
+        n = int(self._table.n)
+
+        def u64(hi, lo):
+            return (to_u32(hi[:n]).astype(np.uint64) << np.uint64(32)) | to_u32(lo[:n])
+
+        t = self._table
+        return u64(t.key_hi, t.key_lo), u64(t.val_hi, t.val_lo)
+
+    def _host_fps(self, states: List[Any]) -> List[int]:
+        """Fingerprints of object states through the packed codec: one
+        batched call, on the host."""
+        rows = np.stack([np.asarray(self._model.pack(s), dtype=np.uint32) for s in states])
+        hi, lo = fphash.fingerprint_words(from_u32(rows, "cpu"))
+        return [(h << 32) | l for h, l in zip(hi.tolist(), lo.tolist())]
+
+    def _path_for(self, fp64: int, parents) -> Path:
+        """Walks parent fingerprints back to an init state, then re-executes
+        the object model forward (bfs.rs:430-459, path.rs:20-97), matching
+        states by their packed fingerprints."""
+        keys, vals = parents
+        chain: List[int] = []
+        cur = fp64
+        while cur != 0:
+            i = int(np.searchsorted(keys, np.uint64(cur)))
+            if i >= len(keys) or int(keys[i]) != cur:
+                raise RuntimeError(
+                    f"fingerprint {cur:#x} missing from the visited table during "
+                    "path reconstruction; packed model host/device codecs disagree"
+                )
+            if len(chain) > len(keys):
+                raise RuntimeError("parent chain has a cycle")
+            chain.append(cur)
+            cur = int(vals[i])
+        chain.reverse()
+
+        model = self._model
+        inits = model.init_states()
+        fps = self._host_fps(inits)
+        if chain[0] not in fps:
+            raise RuntimeError(
+                "No init state matches the first fingerprint of a discovery "
+                "path. The packed codec (pack/packed_init) and the object "
+                "model disagree, or packed_step diverges from next_state."
+            )
+        last_state = inits[fps.index(chain[0])]
+        pairs = []
+        for next_fp in chain[1:]:
+            steps = model.next_steps(last_state)
+            fps = self._host_fps([s for _, s in steps]) if steps else []
+            if next_fp not in fps:
+                raise RuntimeError(
+                    f"No successor of {last_state!r} matches fingerprint "
+                    f"{next_fp:#x}: packed_step and next_state disagree."
+                )
+            action, state = steps[fps.index(next_fp)]
+            pairs.append((last_state, action))
+            last_state = state
+        pairs.append((last_state, None))
+        return Path(pairs)
