@@ -17,9 +17,12 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    repeats it three times for the spread and once under ``torch.profiler``
    for the device time by kernel and the device's idle share;
 4. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (plus ragged and overflow cases), exactly
-   (tolerance 0: integer work), and times kernel, plain version and, where
-   one PyTorch call computes the same function, that call;
+   main path's shapes (20 launches each, since a look-back race shows only
+   now and then) and on ragged, overflow and adversarial cases for the
+   tiles and the look-back, exactly (tolerance 0: integer work); times
+   kernel, plain version and, where one PyTorch call computes the same
+   function, that call, the frontier compaction on its own too; and counts
+   the device operations of one call under ``torch.profiler``;
 5. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Every line but the nvidia-smi one is a JSON object. Any failed check
@@ -36,7 +39,7 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from stateright_tpu_torch.models.two_phase_commit import PackedTwoPhaseSys
 from stateright_tpu_torch.ops import _cuda
@@ -55,6 +58,9 @@ EXPECTED_2PC = {
     8: (18_507_778, 1_745_408),
 }
 M32 = 0xFFFFFFFF
+#: Clock cycles of the sleep kernel that holds the stream while timed calls
+#: are enqueued (~25 ms at the H100's clocks).
+SLEEP_CYCLES = 50_000_000
 
 
 def emit(obj) -> None:
@@ -70,14 +76,20 @@ def bound_ms(n_bytes: int) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def timed_ms(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, after two warm-up
-    calls, by CUDA events."""
+def timed_ms(fn, reps: int = 20, queued: bool = False) -> float:
+    """Mean time of ``fn()`` over ``reps`` calls, after two warm-up calls,
+    by CUDA events around the calls. Back to back (the default), a call
+    whose host work outlasts its device work is timed at the host's pace.
+    ``queued`` first holds the stream in a sleep kernel while the host
+    enqueues every call, so the events time the device work alone; only for
+    an ``fn`` that never waits on the device."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -187,6 +199,49 @@ def repeat_and_profile_phase() -> None:
     })
 
 
+def device_ops(fn, calls: int = 5) -> dict:
+    """The device operations (kernels and memsets) of one call of ``fn``, by
+    name: how many the call issues and their mean device time, from
+    ``torch.profiler`` over ``calls`` calls after a warm-up step (the tracer
+    misses the first memset of its window). The tracer now and then loses
+    whole calls' device records, so counts are per call of the most
+    frequent operation (each wrapper launches its kernel once a call)."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) as prof:
+        for _ in range(calls + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    seen = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.count and not e.key.startswith("ProfilerStep")
+    ]
+    seen_calls = max((e.count for e in seen), default=1)
+    return {
+        e.key[:90]: {"per_call": e.count / seen_calls, "ms": e.self_device_time_total / e.count / 1e3,
+                     "seen": e.count}
+        for e in seen
+    }
+
+
+def kernel_timing(kernel, plain, library, n_bytes: int) -> dict:
+    """A kernel's wrapper timed with the device work alone (``ms``) and back
+    to back (``ms_back_to_back``), its device operations per call under the
+    profiler, its plain version, the library call (or None) and the bound
+    of ``n_bytes`` over the memory rate."""
+    ops = device_ops(kernel)
+    return {
+        "ms": timed_ms(kernel, queued=True),
+        "ms_back_to_back": timed_ms(kernel),
+        "device_ms": sum(op["ms"] * op["per_call"] for op in ops.values()),
+        "device_launches_per_call": sum(op["per_call"] for op in ops.values()),
+        "plain_ms": timed_ms(plain),
+        "library_ms": timed_ms(library) if library else None,
+        "bound_ms": bound_ms(n_bytes),
+        "device_ops": ops,
+    }
+
+
 def _grid_case(rng, f: int, a: int, density: float, cap: int):
     """An rm=8-shaped grid compaction: the planes of an [F, A, 2] grid and
     three per-state lanes broadcast over the A slots (P = 5), as the engine
@@ -199,108 +254,199 @@ def _grid_case(rng, f: int, a: int, density: float, cap: int):
     return mask, lanes, cap
 
 
-def compact_bytes(mask, lanes, n: int, cap: int) -> int:
-    """Bytes this compaction must move: the mask, the survivors' grid words
-    and the per-state lanes read once, the survivors' P lanes written once
-    (and n_valid)."""
+def _frontier_case(rng, level: dict):
+    """An rm=8-shaped frontier compaction at one level of the run: the
+    is_new mask over its candidate buffer ([cand_cap], ``unique`` of the
+    first ``generated`` slots set) and P = W + 1 = 3 rows of the compacted
+    grid's [W + 3, cand_cap] output as lanes, into the level's bucket."""
+    dev = "cuda"
+    cand_cap = level["cand_cap"]
+    rows = from_u32(rng.integers(0, 2**32, (5, cand_cap), dtype=np.uint32), dev)
+    flags = np.zeros(cand_cap, bool)
+    flags[rng.choice(level["generated"], level["unique"], replace=False)] = True
+    return torch.from_numpy(flags).to(dev), [rows[0], rows[1], rows[4]], level["bucket"]
+
+
+def _flat_case(rng, m: int, density: float, cap: int, offset: int = 0):
+    """A 1-D mask of ``m`` flags over three contiguous lanes. A nonzero
+    ``offset`` starts the mask that many bytes into its allocation, so it
+    is not aligned for 16-byte loads."""
+    dev = "cuda"
+    base = torch.from_numpy(rng.random(m + offset) < density).to(dev)
+    lanes = from_u32(rng.integers(0, 2**32, (3, m), dtype=np.uint32), dev)
+    return base[offset:], list(lanes), cap
+
+
+def compact_bytes(mask, n_lanes: int, n: int, cap: int, read_words: int, per_row_bytes: int) -> int:
+    """Bytes a compaction must move: the mask read once, ``read_words``
+    words of each kept survivor and ``per_row_bytes`` of per-row lanes read
+    once, its ``n_lanes`` words written once (and n_valid)."""
     kept = min(n, cap)
-    per_state = 3 * mask.shape[0] * 8
-    return mask.numel() + kept * 2 * 8 + per_state + len(lanes) * kept * 8 + 8
+    return mask.numel() + kept * read_words * 8 + per_row_bytes + n_lanes * kept * 8 + 8
+
+
+def sector_bytes(mask, lanes, cap: int) -> int:
+    """Bytes a compaction moves at the grain of the memory system: the mask,
+    every 32-byte sector that holds a word of a kept survivor (counted once
+    however many lanes share it), the survivors' lanes written once and
+    n_valid."""
+    kept = mask.reshape(-1).nonzero().squeeze(1)[:cap]
+    cols = 1 if mask.dim() == 1 else mask.shape[1]
+    row, col = kept // cols, kept % cols
+    addrs = [
+        lane.data_ptr() + (row * lane.stride(0) + col * (lane.stride(1) if lane.dim() == 2 else 0)) * 8
+        for lane in lanes
+    ]
+    sectors = torch.unique(torch.cat(addrs) // 32).numel()
+    return mask.numel() + sectors * 32 + len(lanes) * kept.numel() * 8 + 8
+
+
+def check_compact(name: str, mask, lanes, cap: int, reps: int = 1) -> dict:
+    """``reps`` kernel calls, each equal to the plain version exactly."""
+    want, n_plain = compact_plain(mask, lanes, cap)
+    k = min(int(n_plain), cap)
+    err = 0
+    for _ in range(reps):
+        got, n = compact(mask, lanes, cap)
+        require(int(n) == int(n_plain), f"compact {name}: n_valid")
+        if k:
+            err = max(err, int((got[:, :k] - want[:, :k]).abs().max()))
+        require(err == 0, f"compact {name}: survivors differ")
+    return {"M": mask.numel(), "cap": cap, "n_valid": int(n_plain), "reps": reps, "max_abs_err": err}
+
+
+def time_compact(mask, lanes, cap: int, n: int, read_words: int, per_row_bytes: int) -> dict:
+    stacked = torch.stack([lane.reshape(-1) for lane in lanes])
+    flat = mask.reshape(-1)
+    timing = kernel_timing(
+        lambda: compact(mask, lanes, cap), lambda: compact_plain(mask, lanes, cap),
+        lambda: stacked[:, flat],
+        compact_bytes(mask, len(lanes), n, cap, read_words, per_row_bytes),
+    )
+    return {**timing, "sector_floor_ms": bound_ms(sector_bytes(mask, lanes, cap))}
 
 
 def compact_phase(c, rng) -> dict:
-    """B1 against its plain version at the main path's largest grid (the
-    widest bucket the rm=8 run dispatched, its candidate cap, its densest
-    level), a ragged M and a cap overflow."""
+    """B1 against its plain version at the main path's two shapes -- its
+    largest grid (the widest bucket the rm=8 run dispatched, its candidate
+    cap, its densest level) and its largest frontier compaction -- 20 times
+    each, then on adversarial cases: a ragged M, a cap overflow, all-true
+    and all-false masks, a length that is no multiple of 16 and a mask not
+    aligned for 16-byte loads. Times both rm=8 shapes."""
     top = max(c.level_log, key=lambda r: r["bucket"])
     f, a = top["bucket"], c.model().max_actions
     density = max(r["generated"] / (r["bucket"] * a) for r in c.level_log if r["bucket"] == f)
+    wide = max(c.level_log, key=lambda r: r["unique"])
+    odd = 16 * 4096 * 7 + 9
     cases = {
-        "rm8_grid": _grid_case(rng, f, a, density, top["cand_cap"]),
-        "ragged": _grid_case(rng, 1001, a, 0.25, 1 << 14),
-        "overflow": _grid_case(rng, 4096, a, 0.5, 1 << 12),
+        "rm8_grid": (_grid_case(rng, f, a, density, top["cand_cap"]), 20),
+        "rm8_frontier": (_frontier_case(rng, wide), 20),
+        "ragged": (_grid_case(rng, 1001, a, 0.25, 1 << 14), 1),
+        "overflow": (_grid_case(rng, 4096, a, 0.5, 1 << 12), 1),
+        "all_true": (_flat_case(rng, 1_000_003, 1.0, 1 << 20), 1),
+        "all_false": (_flat_case(rng, 1_000_003, 0.0, 1 << 20), 1),
+        "length_not_x16": (_flat_case(rng, odd, 0.3, 1 << 20), 1),
+        "unaligned": (_flat_case(rng, odd, 0.3, 1 << 20, offset=3), 1),
     }
-    out = {}
-    for name, (mask, lanes, cap) in cases.items():
-        got, n = compact(mask, lanes, cap)
-        want, n_plain = compact_plain(mask, lanes, cap)
-        torch.cuda.synchronize()
-        k = min(int(n_plain), cap)
-        require(int(n) == int(n_plain), f"compact {name}: n_valid")
-        err = int((got[:, :k] - want[:, :k]).abs().max()) if k else 0
-        require(err == 0, f"compact {name}: survivors differ")
-        out[name] = {"M": mask.numel(), "cap": cap, "n_valid": int(n), "max_abs_err": err}
-    mask, lanes, cap = cases["rm8_grid"]
-    n = out["rm8_grid"]["n_valid"]
-    stacked = torch.stack([lane.reshape(-1) for lane in lanes])
-    flat = mask.reshape(-1)
-    timing = {
-        "ms": timed_ms(lambda: compact(mask, lanes, cap)),
-        "plain_ms": timed_ms(lambda: compact_plain(mask, lanes, cap)),
-        "library_ms": timed_ms(lambda: stacked[:, flat]),
-        "bound_ms": bound_ms(compact_bytes(mask, lanes, n, cap)),
+    out = {name: check_compact(name, *case, reps=reps) for name, (case, reps) in cases.items()}
+    mask, lanes, cap = cases["rm8_grid"][0]
+    timing = time_compact(mask, lanes, cap, out["rm8_grid"]["n_valid"], 2, 3 * f * 8)
+    fmask, flanes, fcap = cases["rm8_frontier"][0]
+    frontier = {
+        "M": fmask.numel(), "P": len(flanes), "cap": fcap,
+        **time_compact(fmask, flanes, fcap, out["rm8_frontier"]["n_valid"], 3, 0),
     }
-    emit({"phase": "compact", "cases": out, **timing})
-    return {"max_abs_err": max(v["max_abs_err"] for v in out.values()), **timing}
+    emit({"phase": "compact", "cases": out, **timing, "frontier": frontier})
+    return {"max_abs_err": max(v["max_abs_err"] for v in out.values()), **timing,
+            "frontier": frontier}
 
 
-def _merge_case(rng, c: int, n_table: int, m: int):
+def _planes(rng, keys, rows: int):
+    """[4, rows] int64 planes on the card: ``keys`` split into (hi, lo)
+    words with random values, then all-ones pad rows."""
+    out = np.full((4, rows), M32, np.uint32)
+    out[0, : len(keys)] = (keys >> np.uint64(32)).astype(np.uint32)
+    out[1, : len(keys)] = (keys & np.uint64(M32)).astype(np.uint32)
+    out[2:, : len(keys)] = rng.integers(0, 2**32, (2, len(keys)), dtype=np.uint32)
+    return from_u32(out, "cuda")
+
+
+def _merge_case(rng, c: int, n_table: int, m: int, hit: float = 0.4, new: float = 0.4,
+                run: int = 0, run_hit: bool = False):
     """A sorted table of ``n_table`` unique keys padded to ``c`` rows, and a
-    (key, ticket)-sorted batch of ``m`` rows: 40% hits on table keys, 40%
-    fresh keys with in-batch duplicates, 20% pads."""
-    keys = np.unique(rng.integers(1, 2**62, int(n_table * 1.05), dtype=np.uint64))
+    (key, ticket)-sorted batch of ``m`` rows: a share ``hit`` of hits on
+    table keys, ``new`` of fresh keys with in-batch duplicates, a run of
+    ``run`` copies of one key (a table key if ``run_hit``, else a fresh
+    one), and pads."""
+    n_keys = int(n_table * 1.05) if n_table else m
+    keys = np.unique(rng.integers(1, 2**62, n_keys, dtype=np.uint64))
     rng.shuffle(keys)
     table_keys = np.sort(keys[:n_table])
     fresh = keys[n_table:]
-    n_hit, n_new = int(m * 0.4), int(m * 0.4)
-    batch_keys = np.concatenate([
-        rng.choice(table_keys, n_hit),
-        rng.choice(fresh[: max(1, n_new // 4)], n_new),
-        np.full(m - n_hit - n_new, 2**64 - 1, np.uint64),
-    ])
-    batch_keys = batch_keys[np.argsort(batch_keys, kind="stable")]
+    n_hit, n_new = int(m * hit), int(m * new)
+    parts = [
+        rng.choice(table_keys, n_hit) if n_hit else np.zeros(0, np.uint64),
+        rng.choice(fresh[: max(1, n_new // 4)], n_new) if n_new else np.zeros(0, np.uint64),
+        np.full(run, table_keys[n_table // 2] if run_hit else fresh[-1], np.uint64),
+    ]
+    batch_keys = np.sort(np.concatenate(parts), kind="stable")
+    return _planes(rng, table_keys, c), _planes(rng, batch_keys, m)
 
-    def planes(k, rows):
-        out = np.full((4, rows), M32, np.uint32)
-        out[0, : len(k)] = (k >> np.uint64(32)).astype(np.uint32)
-        out[1, : len(k)] = (k & np.uint64(M32)).astype(np.uint32)
-        out[2:, : len(k)] = rng.integers(0, 2**32, (2, len(k)), dtype=np.uint32)
-        return from_u32(out, "cuda")
 
-    return planes(table_keys, c), planes(batch_keys, m)
+def _tie_case(rng, n: int, c: int, m: int):
+    """Table keys 0..n and batch keys 1..n: batch key x lands at merged
+    position 2x, right after the equal table key, so every tile boundary
+    (at a multiple of an even tile) falls between a table row and the equal
+    batch row that must die."""
+    return (_planes(rng, np.arange(n + 1, dtype=np.uint64), c),
+            _planes(rng, np.arange(1, n + 1, dtype=np.uint64), m))
+
+
+def check_merge(name: str, table, batch, reps: int = 1) -> dict:
+    """``reps`` kernel calls, each equal to the plain version exactly."""
+    want, keep_plain, n_plain = merge_insert_plain(table, batch)
+    rows = min(int(n_plain), table.shape[1])
+    err = 0
+    for _ in range(reps):
+        got, keep, n = merge_insert(table, batch)
+        require(int(n) == int(n_plain), f"merge {name}: n_keep")
+        require(torch.equal(keep, keep_plain), f"merge {name}: keep flags")
+        if rows:
+            err = max(err, int((got[:, :rows] - want[:, :rows]).abs().max()))
+        require(err == 0, f"merge {name}: merged rows differ")
+    return {"C": table.shape[1], "m": batch.shape[1], "n_keep": int(n_plain), "reps": reps,
+            "max_abs_err": err}
 
 
 def merge_phase(rng, c_main: int, m_main: int) -> dict:
     """B2 against its plain version at the rm=8 run's largest shapes (C =
     its table capacity with ~1.3 M real rows, m = its widest candidate
-    buffer), at m = 2^20, and in an overflow case."""
+    buffer) 20 times, then at m = 2^20, in an overflow case and on
+    adversarial cases for the tiles and the look-back: a 10,000-row run of
+    one batch key (fresh, and equal to a table key) across several tiles, a
+    batch key equal to the table key just before every tile's diagonal, an
+    all-pad batch, an all-pad table and m = 1."""
     cases = {
-        "rm8_table": _merge_case(rng, c_main, 1_300_000, m_main),
-        "m_2^20": _merge_case(rng, c_main, 1_300_000, 1 << 20),
-        "overflow": _merge_case(rng, 1 << 16, 65_000, 1 << 14),
+        "rm8_table": (_merge_case(rng, c_main, 1_300_000, m_main), 20),
+        "m_2^20": (_merge_case(rng, c_main, 1_300_000, 1 << 20), 1),
+        "overflow": (_merge_case(rng, 1 << 16, 65_000, 1 << 14), 1),
+        "run_10k_fresh": (_merge_case(rng, 1 << 20, 600_000, 1 << 16, run=10_000), 1),
+        "run_10k_hit": (_merge_case(rng, 1 << 20, 600_000, 1 << 16, run=10_000, run_hit=True), 1),
+        "tie_at_diagonals": (_tie_case(rng, 100_000, 1 << 17, 1 << 17), 1),
+        "all_pad_batch": (_merge_case(rng, 1 << 16, 60_000, 1 << 14, hit=0, new=0), 1),
+        "all_pad_table": (_merge_case(rng, 1 << 16, 0, 1 << 14, hit=0), 1),
+        "m_1": (_merge_case(rng, 1 << 16, 60_000, 1, hit=0, new=1.0), 1),
     }
-    out = {}
-    for name, (table, batch) in cases.items():
-        got, keep, n = merge_insert(table, batch)
-        want, keep_plain, n_plain = merge_insert_plain(table, batch)
-        torch.cuda.synchronize()
-        rows = min(int(n_plain), table.shape[1])
-        require(int(n) == int(n_plain), f"merge {name}: n_keep")
-        require(torch.equal(keep, keep_plain), f"merge {name}: keep flags")
-        err = int((got[:, :rows] - want[:, :rows]).abs().max()) if rows else 0
-        require(err == 0, f"merge {name}: merged rows differ")
-        out[name] = {"C": table.shape[1], "m": batch.shape[1], "n_keep": int(n), "max_abs_err": err}
-    table, batch = cases["rm8_table"]
+    out = {name: check_merge(name, *case, reps=reps) for name, (case, reps) in cases.items()}
+    table, batch = cases["rm8_table"][0]
     n = out["rm8_table"]["n_keep"]
     c, m = table.shape[1], batch.shape[1]
-    timing = {
-        "ms": timed_ms(lambda: merge_insert(table, batch)),
-        "plain_ms": timed_ms(lambda: merge_insert_plain(table, batch)),
-        "library_ms": None,
-        # Keys of every row read once, values of the kept rows read once,
-        # merged rows, keep flags and n_keep written once.
-        "bound_ms": bound_ms((2 * c + 2 * m) * 8 + 6 * min(n, c) * 8 + m + 8),
-    }
+    # Keys of every row read once, values of the kept rows read once,
+    # merged rows, keep flags and n_keep written once.
+    timing = kernel_timing(
+        lambda: merge_insert(table, batch), lambda: merge_insert_plain(table, batch), None,
+        (2 * c + 2 * m) * 8 + 6 * min(n, c) * 8 + m + 8,
+    )
     emit({"phase": "merge_insert", "cases": out, **timing})
     return {"max_abs_err": max(v["max_abs_err"] for v in out.values()), **timing}
 

@@ -8,11 +8,11 @@
 extern "C" {
 
 // lane_desc holds n_lanes host triples (pointer, s0, s1); see stpu::Lane.
-// Returns the cudaError_t of the launches (0 = cudaSuccess).
+// status: stpu_compact_status_words(m) int64 of scratch. Returns the
+// cudaError_t of the launches (0 = cudaSuccess).
 int stpu_compact(const void* mask, long long m, long long cols,
                  const long long* lane_desc, int n_lanes, void* out,
-                 long long cap, void* tile_scratch, void* n_valid,
-                 void* stream) {
+                 long long cap, void* status, void* n_valid, void* stream) {
   if (n_lanes < 1 || n_lanes > stpu::kMaxLanes || cols < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -25,11 +25,13 @@ int stpu_compact(const void* mask, long long m, long long cols,
   }
   return (int)stpu::launch_compact(
       static_cast<const bool*>(mask), m, cols, lanes,
-      static_cast<long long*>(out), cap, static_cast<long long*>(tile_scratch),
+      static_cast<long long*>(out), cap, static_cast<long long*>(status),
       static_cast<long long*>(n_valid), static_cast<cudaStream_t>(stream));
 }
 
-long long stpu_compact_tiles(long long m) { return stpu::num_tiles(m); }
+long long stpu_compact_status_words(long long m) {
+  return stpu::status_words(stpu::num_tiles(m));
+}
 
 const char* stpu_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -41,11 +41,11 @@ _SIGNATURES = {
             [_P, _I64, _I64, ctypes.POINTER(ctypes.c_int64), _INT, _P, _I64, _P, _P, _P],
             _INT,
         ),
-        "stpu_compact_tiles": ([_I64], _I64),
+        "stpu_compact_status_words": ([_I64], _I64),
     },
     "merge": {
-        "stpu_merge_insert": ([_P, _I64, _P, _I64] + [_P] * 8 + [_P], _INT),
-        "stpu_merge_tiles": ([_I64, _I64], _I64),
+        "stpu_merge_insert": ([_P, _I64, _P, _I64] + [_P] * 5, _INT),
+        "stpu_merge_status_words": ([_I64, _I64], _I64),
     },
 }
 

@@ -73,10 +73,10 @@ def _launch(
         desc += [lane.data_ptr(), lane.stride(0), s1]
     out = torch.empty((len(lanes), cap), dtype=DTYPE, device=mask.device)
     n_valid = torch.empty((), dtype=DTYPE, device=mask.device)
-    tiles = torch.empty(max(so.stpu_compact_tiles(m), 1), dtype=DTYPE, device=mask.device)
+    status = torch.empty(so.stpu_compact_status_words(m), dtype=DTYPE, device=mask.device)
     rc = so.stpu_compact(
         mask.data_ptr(), m, cols, (ctypes.c_int64 * len(desc))(*desc), len(lanes),
-        out.data_ptr(), cap, tiles.data_ptr(), n_valid.data_ptr(),
+        out.data_ptr(), cap, status.data_ptr(), n_valid.data_ptr(),
         _cuda.stream_of(mask),
     )
     _cuda.check(so, rc, "compact")

@@ -67,23 +67,14 @@ def _launch(table: torch.Tensor, batch: torch.Tensor) -> Result:
         raise ValueError("table and batch must be contiguous [4, n] planes")
     c, m = table.shape[1], batch.shape[1]
     dev = table.device
-
-    def scratch(*shape, dtype=DTYPE):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    planes = scratch(4, c + m)
-    is_batch = scratch(c + m, dtype=torch.uint8)
-    pos_b = scratch(m)
-    keep = scratch(c + m, dtype=torch.bool)
-    keep_batch = scratch(m, dtype=torch.bool)
-    merged = scratch(4, c)
-    tiles = scratch(max(so.stpu_merge_tiles(c, m), 1))
-    n_keep = scratch()
+    keep_batch = torch.empty(m, dtype=torch.bool, device=dev)
+    merged = torch.empty((4, c), dtype=DTYPE, device=dev)
+    status = torch.empty(so.stpu_merge_status_words(c, m), dtype=DTYPE, device=dev)
+    n_keep = torch.empty((), dtype=DTYPE, device=dev)
     rc = so.stpu_merge_insert(
-        table.data_ptr(), c, batch.data_ptr(), m, planes.data_ptr(),
-        is_batch.data_ptr(), pos_b.data_ptr(), keep.data_ptr(),
-        keep_batch.data_ptr(), merged.data_ptr(), tiles.data_ptr(),
-        n_keep.data_ptr(), _cuda.stream_of(table),
+        table.data_ptr(), c, batch.data_ptr(), m, keep_batch.data_ptr(),
+        merged.data_ptr(), status.data_ptr(), n_keep.data_ptr(),
+        _cuda.stream_of(table),
     )
     _cuda.check(so, rc, "merge_insert")
     merge_insert.launches += 1

@@ -2,7 +2,9 @@
 (stateright_tpu_torch/ops/compact.py) against the reference TPU kernel
 (stateright_tpu/ops/pallas_compact.py, in interpret mode) and numpy: exact
 comparison, tolerance 0 (integer work). The CUDA kernel itself is held
-against this plain version on the card by chip_smoke.py."""
+against this plain version on the card by chip_smoke.py; here its
+decomposition (byte fold, in-tile ranks, tile offsets) is replayed in numpy
+and held against the plain version."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,6 +77,69 @@ def test_grid_views_match_numpy():
     k = min(int(flat.sum()), cap)
     assert int(n) == int(flat.sum())
     assert np.array_equal(to_u32(out)[:, :k], want[:, :k])
+
+
+def _bits_of(words):
+    """csrc/compact.cuh ``bits_of``: four mask bytes per uint32 word, any
+    nonzero byte true (``__vcmpne4``), folded to bits 0..3."""
+    ne = np.zeros_like(words)
+    for b in range(4):
+        ne |= np.where((words >> np.uint32(8 * b)) & np.uint32(0xFF), np.uint32(1 << (8 * b)), 0).astype(np.uint32)
+    return (ne | ne >> np.uint32(7) | ne >> np.uint32(14) | ne >> np.uint32(21)) & np.uint32(0xF)
+
+
+def test_byte_fold_of_the_kernel():
+    rng = np.random.default_rng(1)
+    raw = rng.choice(np.array([0, 1, 2, 0x80, 0xFF], np.uint8), (4096, 4))
+    want = ((raw != 0) * (1 << np.arange(4))).sum(1)
+    assert np.array_equal(_bits_of(raw.view("<u4").reshape(-1)), want)
+
+
+def _tiled_compact(mask, planes, cap, threads, flags=16):
+    """The CUDA kernel's decomposition (csrc/compact.cuh) in numpy: tiles of
+    threads * flags mask bytes, each thread's flags folded to a bit mask
+    (16-byte loads where aligned, scalar at the ragged edge), an exclusive
+    scan of the threads' popcounts for the in-tile ranks, an exclusive scan
+    of the tile totals (the look-back's result) for the tile offsets, and
+    survivor r written to column r when r < cap."""
+    m = mask.size
+    tile = threads * flags
+    raw = mask.astype(np.uint8)
+    out = np.zeros((planes.shape[0], cap), np.uint32)
+    offset = 0
+    for base in range(0, m, tile):
+        counts, positions = [], []
+        for t in range(threads):
+            k0 = base + t * flags
+            if k0 + flags <= m:
+                words = raw[k0:k0 + flags].view("<u4")
+                bits = sum(int(w) << (4 * i) for i, w in enumerate(_bits_of(words)))
+            else:
+                bits = sum(1 << b for b in range(flags) if k0 + b < m and raw[k0 + b])
+            positions.append([t * flags + b for b in range(flags) if bits >> b & 1])
+            counts.append(bin(bits).count("1"))
+        ranks = np.concatenate([[0], np.cumsum(counts)])
+        pos = np.zeros(ranks[-1], np.int64)
+        for t in range(threads):
+            pos[ranks[t]:ranks[t + 1]] = positions[t]
+        for x, p in enumerate(pos):
+            if offset + x < cap:
+                out[:, offset + x] = planes[:, base + p]
+        offset += int(ranks[-1])
+    return out, offset
+
+
+@pytest.mark.parametrize("threads", [4, 32])
+@pytest.mark.parametrize("M,cap", [(5000, 6000), (4097, 300), (64 * 16, 2048), (9, 4)])
+def test_kernel_decomposition_matches_plain(M, cap, threads):
+    rng = np.random.default_rng(M + threads)
+    mask = rng.integers(0, 3, M) == 0
+    planes = rng.integers(0, 2**32, (3, M), dtype=np.uint32)
+    got, n = _tiled_compact(mask, planes, cap, threads)
+    want, n_plain = compact(torch.from_numpy(mask), list(from_u32(planes, "cpu")), cap)
+    k = min(n, cap)
+    assert n == int(n_plain) == int(mask.sum())
+    assert np.array_equal(got[:, :k], to_u32(want)[:, :k])
 
 
 def test_cpu_tensors_take_the_plain_version():
