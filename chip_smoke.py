@@ -9,13 +9,25 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    the port from ``stateright_tpu_torch/csrc`` (one ``nvcc`` per source, all
    started together);
 2. checks small 2pc spaces on the card against the pinned counts, and the
-   rm=4 search on the card against the same search on the CPU;
-3. drives the main path, ``PackedTwoPhaseSys(8).checker().spawn_xla()``,
-   with every launch counter set to 0 just before it and read just after:
-   exact counts (18,507,778 generated, 1,745,408 unique), both kernels
-   launched, and every discovery re-executed to a valid witness path; then
-   repeats it three times for the spread and once under ``torch.profiler``
-   for the device time by kernel and the device's idle share;
+   rm=4 search on the card (fused blocks of CUDA graphs) against the same
+   search on the CPU (the same gated level, run eagerly): per-level
+   counts and witness paths;
+3. drives the main path, ``PackedTwoPhaseSys(8).checker().spawn_xla()``
+   (fused blocks of up to 32 levels, each level a CUDA graph replay),
+   cold and then warm on one model instance, with every launch counter
+   set to 0 just before each run and read just after: exact counts
+   (18,507,778 generated, 1,745,408 unique), fewer dispatches than levels,
+   graphs captured by the cold run and reused by the warm one, both
+   kernels launched, and every discovery re-executed to a valid witness
+   path; then repeats the warm run three times for the spread and once
+   under ``torch.profiler`` for the device time by kernel, the device
+   operations per level and the device's idle share; times the gated copy
+   of the table planes; splits the host time of a cold and a warm run of a
+   fresh model instance by step of the block; sweeps the replay lookahead (``graphs.LOOKAHEAD``)
+   over warm runs; runs ``levels_per_dispatch=1`` at rm=8 for the
+   comparison; and holds rm=5 through graph replays against the same gated
+   level run eagerly on the card: equal level and dispatch logs and
+   bitwise equal table planes;
 4. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (20 launches each, since a look-back race shows only
    now and then) and on ragged, overflow and adversarial cases for the
@@ -41,11 +53,13 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
+from stateright_tpu_torch import graphs
 from stateright_tpu_torch.models.two_phase_commit import PackedTwoPhaseSys
 from stateright_tpu_torch.ops import _cuda
 from stateright_tpu_torch.ops.compact import compact, compact_plain
 from stateright_tpu_torch.ops.merge import merge_insert, merge_insert_plain
 from stateright_tpu_torch.ops.words import from_u32
+from stateright_tpu_torch.xla import XlaChecker
 
 #: H100 SXM device-memory rate, bytes per second (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -112,75 +126,108 @@ def device_phase() -> None:
     emit({"phase": "build", "seconds": _cuda.build(), "sources": list(_cuda.SOURCES)})
 
 
+LEVEL_KEYS = ("depth", "frontier", "generated", "unique", "bucket", "cand_cap")
+
+
+def levels(c) -> list:
+    return [tuple(r[k] for k in LEVEL_KEYS) for r in c.level_log]
+
+
 def small_phase() -> None:
     """Counts of the small spaces on the card, and rm=4 on the card equal
-    to rm=4 on the CPU level by level and path by path."""
+    to rm=4 on the CPU level by level, block by block and path by path."""
     for rm in (3, 4, 5, 6, 7):
         c = PackedTwoPhaseSys(rm).checker().spawn_xla().join()
         require((c.state_count(), c.unique_state_count()) == EXPECTED_2PC[rm], f"rm={rm} counts")
     gpu = PackedTwoPhaseSys(4).checker().spawn_xla().join()
     cpu = PackedTwoPhaseSys(4).checker().spawn_xla(device="cpu").join()
-
-    def levels(c):
-        return [(r["depth"], r["generated"], r["unique"]) for r in c.level_log]
-
-    require(levels(gpu) == levels(cpu), "rm=4 per-level counts, card vs CPU")
+    # Buckets and blocks may differ: a card starts the candidate buffers of
+    # large buckets at a sixteenth of the grid, the CPU at a quarter.
+    require([r[:4] for r in levels(gpu)] == [r[:4] for r in levels(cpu)],
+            "rm=4 per-level counts, card vs CPU")
+    require(gpu.metrics()["graph_captures"] > 0, "rm=4 on the card ran no graph")
     dg, dc = gpu.discoveries(), cpu.discoveries()
     require(set(dg) == set(dc) and all(
         dg[k].into_actions() == dc[k].into_actions() for k in dc
     ), "rm=4 witness paths, card vs CPU")
-    emit({"phase": "small", "rm": [3, 4, 5, 6, 7], "counts_ok": True, "rm4_card_equals_cpu": True})
+    emit({"phase": "small", "rm": [3, 4, 5, 6, 7], "counts_ok": True, "rm4_card_equals_cpu": True,
+          "rm4_dispatch_log": {"card": gpu.dispatch_log, "cpu": cpu.dispatch_log}})
 
 
-def main_path_phase():
-    """2pc rm=8 through the entry point a user calls, counters zeroed just
-    before and read just after."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+def zero_launches() -> None:
     compact.launches = 0
     merge_insert.launches = 0
+
+
+def drive(model, **kw):
+    """One ``spawn_xla().join()`` of ``model`` timed on the host clock,
+    launch counters zeroed just before and read just after."""
+    torch.cuda.synchronize()
+    zero_launches()
     t0 = time.perf_counter()
-    c = PackedTwoPhaseSys(8).checker().spawn_xla().join()
+    c = model.checker().spawn_xla(**kw).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"compact": compact.launches, "merge_insert": merge_insert.launches}
+    return c, wall, {"compact": compact.launches, "merge_insert": merge_insert.launches}
+
+
+def check_rm8(c, launches: dict, what: str) -> dict:
+    """Exact counts, both kernels launched, every witness path re-executed;
+    returns the run's line."""
     counts = (c.state_count(), c.unique_state_count())
-    require(counts == EXPECTED_2PC[8], f"rm=8 counts {counts}")
-    require(all(n > 0 for n in launches.values()), f"kernel launches {launches}")
+    require(counts == EXPECTED_2PC[8], f"{what}: rm=8 counts {counts}")
+    require(all(n > 0 for n in launches.values()), f"{what}: kernel launches {launches}")
     t1 = time.perf_counter()
     found = c.discoveries()
     c.assert_properties()
     for name, path in found.items():
         c.assert_discovery(name, path.into_actions())
     m = c.metrics()
-    emit({
-        "phase": "rm8", "generated": counts[0], "unique": counts[1],
-        "max_depth": c.max_depth(), "levels": len(c.level_log),
-        "dispatches": m["dispatches"], "wall_s": wall,
-        "states_per_s": counts[0] / wall, "launches": launches,
-        "table_capacity": m["table_capacity"],
-        "frontier_capacity": m["frontier_capacity"],
+    return {
+        "generated": counts[0], "unique": counts[1], "max_depth": c.max_depth(),
+        "levels": len(c.level_log), "dispatches": m["dispatches"],
+        "dispatch_log": c.dispatch_log, "launches": launches,
+        "graph_captures": m["graph_captures"], "capture_s": m["graph_capture_s"],
+        "dead_replays": m["dead_replays"], "shrink_exits": m["shrink_exits"],
+        "table_capacity": m["table_capacity"], "frontier_capacity": m["frontier_capacity"],
         "grows": {k: m[k] for k in ("table_grows", "frontier_grows", "cand_grows")},
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "discoveries": {k: len(p) for k, p in found.items()},
         "paths_s": time.perf_counter() - t1,
+    }
+
+
+def main_path_phase():
+    """2pc rm=8 through the entry point a user calls, cold and then warm on
+    one model instance: the warm run starts from the capacities the cold
+    run learned and replays the graphs it captured."""
+    model = PackedTwoPhaseSys(8)
+    torch.cuda.reset_peak_memory_stats()
+    cold, cold_wall, cold_launches = drive(model)
+    cold_line = check_rm8(cold, cold_launches, "cold")
+    warm, warm_wall, warm_launches = drive(model)
+    warm_line = check_rm8(warm, warm_launches, "warm")
+    for line in (cold_line, warm_line):
+        require(line["dispatches"] < line["levels"], f"fused blocks: {line['dispatch_log']}")
+    require(cold_line["graph_captures"] > 0, "the cold run captured no graph")
+    require(warm_line["graph_captures"] == 0,
+            f"the warm run captured {warm_line['graph_captures']} graphs")
+    require([r[:4] for r in levels(warm)] == [r[:4] for r in levels(cold)],
+            "warm and cold per-level counts")
+    emit({
+        "phase": "rm8", "cold_wall_s": cold_wall, "warm_wall_s": warm_wall,
+        "states_per_s": EXPECTED_2PC[8][0] / warm_wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "cold": cold_line, "warm": warm_line,
     })
-    return c, launches
+    return model, warm, cold_launches
 
 
-def repeat_and_profile_phase() -> None:
-    """The spread of the rm=8 wall over three more runs, then one run under
-    ``torch.profiler``: device time by kernel and the device's idle share
-    of that (profiled, so slower) run's wall."""
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        PackedTwoPhaseSys(8).checker().spawn_xla().join()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``: its wall and the device kernels and
+    memory operations by name ``(name, ms, calls)``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        PackedTwoPhaseSys(8).checker().spawn_xla().join()
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [
@@ -188,15 +235,132 @@ def repeat_and_profile_phase() -> None:
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
+    return out, wall, kernels
+
+
+def repeat_and_profile_phase(model) -> None:
+    """The spread of the warm rm=8 wall over three more warm runs of the
+    same model instance, then one under ``torch.profiler``: device time by
+    kernel, device operations per level and the device's idle share of
+    that (profiled, so slower) run's wall. Then the gated copy of the
+    table planes at the run's table capacity, timed alone."""
+    walls = []
+    for _ in range(3):
+        c, wall, _ = drive(model)
+        require(c.metrics()["graph_captures"] == 0, "a repeat captured graphs")
+        walls.append(wall)
+    c, wall, kernels = profiled(lambda: model.checker().spawn_xla().join())
     busy_ms = sum(ms for _, ms, _ in kernels)
+    ops = sum(n for _, _, n in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:12]
+    cap = c.metrics()["table_capacity"]
+    planes = [torch.randint(0, 2**32, (cap,), dtype=torch.int64, device="cuda") for _ in range(8)]
+    flag = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def gated_copy():
+        for new, old in zip(planes[:4], planes[4:]):
+            old.copy_(torch.where(flag, new, old))
+
     emit({
         "phase": "rm8_repeat_profile", "walls_s": walls, "profiled_wall_s": wall,
         "device_busy_ms": busy_ms if kernels else "not measured",
         "device_idle_share": 1 - busy_ms / (wall * 1e3) if kernels else "not measured",
-        "device_launches": sum(n for _, _, n in kernels),
+        "device_launches": ops, "levels": len(c.level_log),
+        "device_ops_per_level": ops / len(c.level_log),
         "top_kernels": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in top],
+        "gated_table_copy": {"C": cap, "ms": timed_ms(gated_copy), "bound_ms": bound_ms(3 * 4 * cap * 8)},
     })
+
+
+def host_split(fn):
+    """``fn()`` with the host seconds spent in each step of the fused block
+    summed by name: making programs (captures included), loading the
+    carry, replaying levels (which waits for the card), keeping the
+    committed state."""
+    spent = {}
+    steps = [(XlaChecker, "_program"), (XlaChecker, "_load"), (graphs, "replay_block"),
+             (XlaChecker, "_keep")]
+    originals = [(owner, name, getattr(owner, name)) for owner, name in steps]
+
+    def timed(name, f):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return f(*args, **kwargs)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    for owner, name, f in originals:
+        setattr(owner, name, timed(name, f))
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        spent["wall"] = time.perf_counter() - t0
+    finally:
+        for owner, name, f in originals:
+            setattr(owner, name, f)
+    return spent
+
+
+def host_split_phase() -> None:
+    """Where the host's time goes in a cold and a warm rm=8 run of a fresh
+    model instance (not the main-path runs, which run unwrapped)."""
+    model = PackedTwoPhaseSys(8)
+
+    def run():
+        model.checker().spawn_xla().join()
+
+    emit({"phase": "rm8_host_split", "cold": host_split(run), "warm": host_split(run)})
+
+
+def lookahead_sweep_phase(model) -> None:
+    """Warm rm=8 walls at each replay lookahead, in turns, three runs each."""
+    depths = (1, 2, 3, 4)
+    chosen = graphs.LOOKAHEAD
+    walls = {d: [] for d in depths}
+    dead = {d: [] for d in depths}
+    try:
+        for _ in range(3):
+            for d in depths:
+                graphs.LOOKAHEAD = d
+                c, wall, _ = drive(model)
+                walls[d].append(wall)
+                dead[d].append(c.metrics()["dead_replays"])
+    finally:
+        graphs.LOOKAHEAD = chosen
+    emit({"phase": "lookahead_sweep", "chosen": chosen, "walls_s": walls, "dead_replays": dead})
+
+
+def rm8_single_phase() -> None:
+    """``levels_per_dispatch=1`` at rm=8, twice, for the comparison."""
+    walls = []
+    for _ in range(2):
+        c, wall, launches = drive(PackedTwoPhaseSys(8), levels_per_dispatch=1)
+        line = check_rm8(c, launches, "levels_per_dispatch=1")
+        require(line["dispatches"] >= line["levels"], "one level per dispatch")
+        walls.append(wall)
+    emit({"phase": "rm8_single", "walls_s": walls, "levels": line["levels"],
+          "dispatches": line["dispatches"], "launches": launches})
+
+
+def graph_vs_eager_phase() -> None:
+    """rm=5 through graph replays against the same gated level run eagerly
+    on the card: equal level and dispatch logs, bitwise equal table."""
+    graph = PackedTwoPhaseSys(5).checker().spawn_xla().join()
+    eager = PackedTwoPhaseSys(5).checker().spawn_xla()
+    eager._use_graphs = False
+    eager.join()
+    require(graph.metrics()["graph_captures"] > 0, "the graph run captured nothing")
+    require(eager.metrics()["graph_captures"] == 0, "the eager run captured graphs")
+    require(levels(graph) == levels(eager), "rm=5 level logs, graph vs eager")
+    require(graph.dispatch_log == eager.dispatch_log, "rm=5 dispatch logs, graph vs eager")
+    tg, te = graph._table, eager._table
+    require(all(torch.equal(a, b) for a, b in zip(tg, te)), "rm=5 table planes, graph vs eager")
+    require(torch.equal(graph._disc_fp, eager._disc_fp), "rm=5 discoveries, graph vs eager")
+    emit({"phase": "graph_vs_eager", "rm": 5, "equal": True, "dispatch_log": graph.dispatch_log,
+          "table_rows": int(tg.n), "graph_captures": graph.metrics()["graph_captures"]})
 
 
 def device_ops(fn, calls: int = 5) -> dict:
@@ -457,8 +621,12 @@ def main() -> int:
         return 2
     device_phase()
     small_phase()
-    checker, launches = main_path_phase()
-    repeat_and_profile_phase()
+    model, checker, launches = main_path_phase()
+    repeat_and_profile_phase(model)
+    host_split_phase()
+    lookahead_sweep_phase(model)
+    rm8_single_phase()
+    graph_vs_eager_phase()
     rng = np.random.default_rng(2024)
     b1 = compact_phase(checker, rng)
     m_main = max(r["cand_cap"] for r in checker.level_log)

@@ -1,0 +1,218 @@
+"""The fused level loop's device programs: CUDA graphs of the gated level.
+
+Counterpart of the fused-dispatch program cache of
+``stateright_tpu/xla.py``: ``_fused_key``/``_fused_for`` (one program per
+shape key), the cache on the model instance (``_xla_superstep_cache``),
+``_mark_dispatch_shape`` and ``_compiled_run_caps``. The reference compiles
+its whole level loop into one ``lax.while_loop``. Here the loop body, one
+BFS level gated on the device (``XlaChecker._gated_level``), is captured
+once per shape key as a CUDA graph, and a block replays that graph once per
+level (:func:`replay_block`) with one host round trip per block.
+
+- A :class:`Carry` holds the static device buffers the gated level reads and
+  updates in place: the frontier and its eventually-bits per run bucket,
+  the visited-set planes, the discoveries, the block scalars (:data:`SLOTS`)
+  and the per-level telemetry. Every graph of a model at one table capacity
+  shares one carry: the graphs never run at the same time, and a checker
+  loads its state into the carry at a block's start and clones what it
+  keeps at the block's end.
+- A :class:`Program` is one shape key ``(run_cap, cand_cap,
+  table_capacity, levels_per_dispatch)``: its graph on a card, or nothing
+  on the CPU, where the checker runs the same gated level eagerly.
+- A :class:`ProgramCache` per model and device holds the carries, the
+  programs and the one graph memory pool all of a model's graphs share
+  (their intermediates are dead when a replay ends, and no two replays run
+  at once).
+
+Graph replays run no Python, so the kernels' launch counters would stop
+counting: each program records how many launches of each kernel its graph
+holds, and :meth:`Program.run` adds them per replay.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from .ops.compact import compact
+from .ops.merge import merge_insert
+from .ops.words import DTYPE
+
+#: Levels in flight on the card during a block: before enqueuing level
+#: ``i + LOOKAHEAD`` the host waits for level ``i`` to end and reads its
+#: live flag. A deeper queue keeps the card busy across the host's round
+#: trip but runs up to ``LOOKAHEAD - 1`` dead levels at the block's end,
+#: and a dead level costs a whole superstep: its gate discards the work,
+#: it does not skip it. ``chip_smoke.py``'s ``lookahead_sweep`` chose 1
+#: (PERF.md).
+LOOKAHEAD = 1
+
+#: The block scalars, slots of the carry's int64 vector ``s``: block inputs
+#: the host writes (budget, remaining, shrink_below), the level counters,
+#: the overflow flags of the last live level (table, frontier, candidate),
+#: the visited set's occupied count, and ``live``, the gate of the next
+#: level.
+SLOTS = (
+    "committed", "f_count", "tot_states", "tot_unique", "prev_gen",
+    "prev2_gen", "t_ovf", "f_ovf", "cc_ovf", "table_n", "live", "budget",
+    "remaining", "shrink_below",
+)
+S = {name: i for i, name in enumerate(SLOTS)}
+#: The overflow flags, as a slice of ``s``.
+OVF = slice(S["t_ovf"], S["cc_ovf"] + 1)
+#: Rows of the per-level telemetry ``lvl``: frontier, generated, unique.
+LVL_ROWS = 3
+
+#: The kernel wrappers whose launches a graph can hold.
+KERNELS = (compact, merge_insert)
+
+
+class Carry:
+    """The static buffers of the gated level at one table capacity."""
+
+    def __init__(self, device, words: int, n_props: int, levels: int, table_capacity: int):
+        z = dict(dtype=DTYPE, device=device)
+        self.words = words
+        self.s = torch.zeros(len(SLOTS), **z)
+        self.table = [torch.zeros(table_capacity, **z) for _ in range(4)]
+        self.disc_found = torch.zeros(n_props, dtype=torch.bool, device=device)
+        self.disc_fp = torch.zeros((n_props, 2), **z)
+        self.host_found = torch.zeros(n_props, dtype=torch.bool, device=device)
+        self.lvl = torch.zeros((LVL_ROWS, levels), **z)
+        self.slots = torch.arange(levels, device=device)
+        self._frontiers: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def frontier(self, run_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The ``[run_cap, W]`` frontier and its ``[run_cap]`` eventually-bits."""
+        if run_cap not in self._frontiers:
+            dev = self.s.device
+            self._frontiers[run_cap] = (
+                torch.zeros((run_cap, self.words), dtype=DTYPE, device=dev),
+                torch.zeros(run_cap, dtype=DTYPE, device=dev),
+            )
+        return self._frontiers[run_cap]
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every buffer, in a fixed order (for bitwise comparisons)."""
+        out = [self.s, *self.table, self.disc_found, self.disc_fp, self.host_found, self.lvl]
+        for run_cap in sorted(self._frontiers):
+            out.extend(self._frontiers[run_cap])
+        return out
+
+
+class Program:
+    """One shape key's level: a captured graph, or None to run eagerly."""
+
+    def __init__(self, carry: Carry, graph=None, launches=()):
+        self.carry = carry
+        self.graph = graph
+        #: ``(wrapper, launches per replay)`` of each kernel in the graph.
+        self.launches = tuple(launches)
+
+    def run(self, body: Callable[[], None], eager: bool = False) -> None:
+        if eager or self.graph is None:
+            body()
+            return
+        self.graph.replay()
+        for fn, n in self.launches:
+            fn.launches += n
+
+
+def capture(body: Callable[[], None], pool, side: torch.cuda.Stream) -> Tuple[object, list]:
+    """``body`` (one gated level on a dead carry) run once eagerly on the
+    side stream, then captured there into a CUDA graph in ``pool``. Returns
+    the graph and the launches of each kernel it holds. Raises if the
+    capture fails. (``torch.cuda.graph`` would also run the garbage
+    collector and empty the allocator's cache around every capture.)"""
+    side.wait_stream(torch.cuda.current_stream())
+    before = [fn.captured for fn in KERNELS]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        body()
+        graph.capture_begin(pool=pool)
+        try:
+            body()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph, [(fn, fn.captured - b) for fn, b in zip(KERNELS, before)]
+
+
+class ProgramCache:
+    """A model's programs and carries on one device."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        cuda = device.type == "cuda"
+        self.pool = torch.cuda.graph_pool_handle() if cuda else None
+        #: The stream that warm-ups and captures run on.
+        self.side = torch.cuda.Stream(device) if cuda else None
+        self.carries: Dict[Tuple[int, int], Carry] = {}
+        #: ``(run_cap, cand_cap, table_capacity, levels_per_dispatch)`` -> Program.
+        self.programs: Dict[Tuple[int, int, int, int], Program] = {}
+
+    def carry(self, words: int, n_props: int, table_capacity: int, levels: int) -> Carry:
+        key = (table_capacity, levels)
+        if key not in self.carries:
+            self.carries[key] = Carry(self.device, words, n_props, levels, table_capacity)
+        return self.carries[key]
+
+    def make(self, key, carry: Carry, body: Callable[[], None], graph: bool) -> Program:
+        """The program of ``key``; with ``graph``, ``body`` is captured, after
+        the carry's budget is zeroed so that the warm-up level is dead."""
+        if graph:
+            carry.s[S["budget"]] = 0
+            prog = Program(carry, *capture(body, self.pool, self.side))
+        else:
+            prog = Program(carry)
+        self.programs[key] = prog
+        return prog
+
+    def drop(self, table_capacity: int, levels: int) -> None:
+        """Forget every program and the carry at ``table_capacity``."""
+        for key in [k for k in self.programs if k[2:] == (table_capacity, levels)]:
+            del self.programs[key]
+        self.carries.pop((table_capacity, levels), None)
+
+
+def cache_for(model, device: torch.device) -> ProgramCache:
+    """The model instance's program cache on ``device`` (made on first use)."""
+    caches = model.__dict__.setdefault("_xla_programs", {})
+    if str(device) not in caches:
+        caches[str(device)] = ProgramCache(device)
+    return caches[str(device)]
+
+
+def replay_block(run_level: Callable[[], None], live: torch.Tensor, budget: int) -> int:
+    """Run up to ``budget`` gated levels; ``live`` is the carry's flag that
+    each level sets to the gate of the next. Returns how many dead levels
+    ran: a dead level ran with its gate closed and changed nothing.
+
+    On the CPU each level's flag is read right after it. On a card the
+    levels are enqueued ``LOOKAHEAD`` ahead: after each, an async copy of
+    its flag into pinned memory and an event; before level ``i +
+    LOOKAHEAD`` the host waits on level ``i``'s event and stops once a
+    flag reads false."""
+    if live.device.type == "cpu":
+        for _ in range(budget):
+            run_level()
+            if not bool(live):
+                break
+        return 0
+    flags = torch.empty(budget, dtype=DTYPE, pin_memory=True)
+    host = flags.numpy()
+    stream = torch.cuda.current_stream()
+    events: List[torch.cuda.Event] = []
+    for n in range(budget):
+        if n >= LOOKAHEAD:
+            events[n - LOOKAHEAD].synchronize()
+            if not host[n - LOOKAHEAD]:
+                break
+        run_level()
+        flags[n].copy_(live, non_blocking=True)
+        events.append(stream.record_event())
+    stream.synchronize()
+    ran = len(events)
+    live_levels = next((i + 1 for i in range(ran) if not host[i]), ran)
+    return ran - live_levels

@@ -124,3 +124,14 @@ def check(so: ctypes.CDLL, rc: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """The handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def count_launch(wrapper) -> None:
+    """One launch by ``wrapper``: ``wrapper.launches`` counts launches that
+    run now, ``wrapper.captured`` those recorded into a CUDA graph under
+    capture, which run only when the graph is replayed (``graphs.py`` adds
+    them to ``launches`` per replay)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1

@@ -80,7 +80,7 @@ def _launch(
         _cuda.stream_of(mask),
     )
     _cuda.check(so, rc, "compact")
-    compact.launches += 1
+    _cuda.count_launch(compact)
     return out, n_valid
 
 
@@ -89,7 +89,8 @@ def compact(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [P, cap] int64, n_valid int64 scalar)``; see the module
     docstring. A CUDA mask launches the kernel (``compact.launches`` counts
-    the launches); a CPU mask runs the plain version."""
+    the launches, ``compact.captured`` those captured into a CUDA graph); a
+    CPU mask runs the plain version."""
     _check(mask, lanes)
     if mask.device.type == "cuda":
         return _launch(mask, lanes, cap)
@@ -99,3 +100,4 @@ def compact(
 
 
 compact.launches = 0
+compact.captured = 0

@@ -77,14 +77,15 @@ def _launch(table: torch.Tensor, batch: torch.Tensor) -> Result:
         _cuda.stream_of(table),
     )
     _cuda.check(so, rc, "merge_insert")
-    merge_insert.launches += 1
+    _cuda.count_launch(merge_insert)
     return merged, keep_batch, n_keep
 
 
 def merge_insert(table: torch.Tensor, batch: torch.Tensor) -> Result:
     """See the module docstring. CUDA planes launch the kernel
-    (``merge_insert.launches`` counts the launches); CPU planes run the
-    plain version."""
+    (``merge_insert.launches`` counts the launches,
+    ``merge_insert.captured`` those captured into a CUDA graph); CPU planes
+    run the plain version."""
     _check(table, batch)
     if table.device.type == "cuda":
         return _launch(table, batch)
@@ -94,3 +95,4 @@ def merge_insert(table: torch.Tensor, batch: torch.Tensor) -> Result:
 
 
 merge_insert.launches = 0
+merge_insert.captured = 0
