@@ -23,19 +23,34 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    under ``torch.profiler`` for the device time by kernel, the device
    operations per level and the device's idle share; times the gated copy
    of the table planes; splits the host time of a cold and a warm run of a
-   fresh model instance by step of the block; sweeps the replay lookahead (``graphs.LOOKAHEAD``)
-   over warm runs; runs ``levels_per_dispatch=1`` at rm=8 for the
-   comparison; and holds rm=5 through graph replays against the same gated
-   level run eagerly on the card: equal level and dispatch logs and
-   bitwise equal table planes;
-4. holds each kernel against its plain PyTorch version on the card at the
+   fresh model instance by step of the block; sweeps the replay lookahead
+   (``graphs.LOOKAHEAD``) over warm runs; runs ``levels_per_dispatch=1``
+   at rm=8 for the comparison; and holds rm=5 through graph replays
+   against the same gated level run eagerly on the card: equal level and
+   dispatch logs and bitwise equal table planes;
+4. drives packed Paxos (``PackedPaxos(c, 3).checker().spawn_xla()``):
+   2c/3s to full coverage through CUDA-graph blocks (32,971 generated,
+   16,668 unique, the 8-action "value chosen" witness re-executed), equal
+   level by level to the same search on the CPU; 3c/3s (W = 46 words,
+   A = 672 action slots, 1,680 interleavings per on-device
+   linearizability check) at its depth-8 pin (3,279 / 1,969), then one
+   level per dispatch to ``PAXOS3_DEPTH`` with the peak memory of every
+   bucket and the device time of its widest level by stage, then cold and
+   warm through the fused path to the same depth
+   (equal level by level, the warm run capturing nothing), the depth of
+   ROUND3.md's CPU probe, and a warm run under ``torch.profiler``;
+5. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (20 launches each, since a look-back race shows only
    now and then) and on ragged, overflow and adversarial cases for the
-   tiles and the look-back, exactly (tolerance 0: integer work); times
-   kernel, plain version and, where one PyTorch call computes the same
-   function, that call, the frontier compaction on its own too; and counts
-   the device operations of one call under ``torch.profiler``;
-5. prints the ``{"kernels": [...]}`` line and, last, the device line.
+   tiles and the look-back, then at the Paxos 3c/3s shapes (the grid
+   compaction's 49 lanes, the frontier compaction's 47, the merge at the
+   Paxos table), exactly (tolerance 0: integer work); times kernel, plain
+   version and, where one PyTorch call computes the same function, that
+   call, the frontier compaction on its own too; and counts the device
+   operations of one call under ``torch.profiler``;
+6. prints the ``{"kernels": [...]}`` line (launches summed over the rm=8
+   and Paxos 3c/3s main-path runs, each also by path) and, last, the
+   device line.
 
 Every line but the nvidia-smi one is a JSON object. Any failed check
 raises, so the script exits non-zero.
@@ -43,6 +58,7 @@ raises, so the script exits non-zero.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -54,11 +70,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
 from stateright_tpu_torch import graphs
+from stateright_tpu_torch.models.paxos import PackedPaxos
 from stateright_tpu_torch.models.two_phase_commit import PackedTwoPhaseSys
 from stateright_tpu_torch.ops import _cuda
 from stateright_tpu_torch.ops.compact import compact, compact_plain
 from stateright_tpu_torch.ops.merge import merge_insert, merge_insert_plain
-from stateright_tpu_torch.ops.words import from_u32
+from stateright_tpu_torch.ops.words import DTYPE, from_u32
 from stateright_tpu_torch.xla import XlaChecker
 
 #: H100 SXM device-memory rate, bytes per second (NVIDIA's data sheet).
@@ -71,6 +88,17 @@ EXPECTED_2PC = {
     7: (2_744_706, 296_448),
     8: (18_507_778, 1_745_408),
 }
+#: Packed Paxos, c clients and 3 servers: full coverage at 2c/3s
+#: (paxos.rs:321,345) and the reference's bounded pin at 3c/3s, depth 8.
+EXPECTED_PAXOS2 = (32_971, 16_668)
+PAXOS3_DEPTH8 = (3_279, 1_969)
+#: The deepest ``target_max_depth`` up to 15 whose 3c/3s run fits one H100
+#: (its last level runs at the 131,072 bucket: a 32.4 GB action grid).
+PAXOS3_DEPTH = 15
+#: ROUND3.md's one-level JAX CPU probe "reached depth 15 -- 626,624
+#: generated / 339,379 unique": run here as ``target_max_depth(16)``, whose
+#: last expanded frontier is at depth 15.
+ROUND3_PROBE = (16, 626_624, 339_379)
 M32 = 0xFFFFFFFF
 #: Clock cycles of the sleep kernel that holds the stream while timed calls
 #: are enqueued (~25 ms at the H100's clocks).
@@ -159,13 +187,17 @@ def zero_launches() -> None:
     merge_insert.launches = 0
 
 
-def drive(model, **kw):
-    """One ``spawn_xla().join()`` of ``model`` timed on the host clock,
-    launch counters zeroed just before and read just after."""
+def drive(model, depth=None, **kw):
+    """One ``spawn_xla().join()`` of ``model`` (to ``target_max_depth(depth)``
+    if given) timed on the host clock, launch counters zeroed just before
+    and read just after."""
     torch.cuda.synchronize()
     zero_launches()
     t0 = time.perf_counter()
-    c = model.checker().spawn_xla(**kw).join()
+    builder = model.checker()
+    if depth is not None:
+        builder = builder.target_max_depth(depth)
+    c = builder.spawn_xla(**kw).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return c, wall, {"compact": compact.launches, "merge_insert": merge_insert.launches}
@@ -361,6 +393,224 @@ def graph_vs_eager_phase() -> None:
     require(torch.equal(graph._disc_fp, eager._disc_fp), "rm=5 discoveries, graph vs eager")
     emit({"phase": "graph_vs_eager", "rm": 5, "equal": True, "dispatch_log": graph.dispatch_log,
           "table_rows": int(tg.n), "graph_captures": graph.metrics()["graph_captures"]})
+
+
+def paxos_small_phase() -> None:
+    """Paxos 2c/3s on the card through CUDA-graph blocks: exact counts,
+    every property checked, the 8-action "value chosen" witness
+    re-executed, and equal level by level to the same search on the CPU."""
+    gpu, wall, launches = drive(PackedPaxos(2, 3))
+    cpu = PackedPaxos(2, 3).checker().spawn_xla(device="cpu").join()
+    counts = (gpu.state_count(), gpu.unique_state_count())
+    require(counts == EXPECTED_PAXOS2, f"paxos 2c/3s counts {counts}")
+    require(all(n > 0 for n in launches.values()), f"paxos 2c/3s kernel launches {launches}")
+    require(gpu.metrics()["graph_captures"] > 0, "paxos 2c/3s on the card ran no graph")
+    gpu.assert_properties()
+    witness = gpu.discoveries()["value chosen"].into_actions()
+    require(len(witness) == 8, f"value chosen witness of {len(witness)} actions")
+    gpu.assert_discovery("value chosen", witness)
+    require([r[:4] for r in levels(gpu)] == [r[:4] for r in levels(cpu)],
+            "paxos 2c/3s per-level counts, card vs CPU")
+    emit({"phase": "paxos_small", "clients": 2, "servers": 3, "generated": counts[0],
+          "unique": counts[1], "levels": len(gpu.level_log), "cold_wall_s": wall,
+          "launches": launches, "dispatch_log": gpu.dispatch_log,
+          "graph_captures": gpu.metrics()["graph_captures"],
+          "capture_s": gpu.metrics()["graph_capture_s"], "witness_actions": len(witness),
+          "card_equals_cpu": True})
+
+
+def per_level_peaks(fn):
+    """``fn()`` with the peak device memory of every one-level dispatch,
+    as ``(bucket, peak GiB)`` per superstep (overflow retries included)."""
+    peaks = []
+    original = XlaChecker._superstep
+
+    def superstep(self, frontier, *args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = original(self, frontier, *args, **kwargs)
+        torch.cuda.synchronize()
+        peaks.append((frontier.shape[0], torch.cuda.max_memory_allocated() / 2**30))
+        return out
+
+    XlaChecker._superstep = superstep
+    try:
+        return fn(), peaks
+    finally:
+        XlaChecker._superstep = original
+
+
+def capture_times(fn):
+    """``fn()`` with the host seconds of each program made (a graph capture
+    with its warm-up level), by ``(run_cap, cand_cap, table_capacity)``."""
+    spent = {}
+    original = graphs.ProgramCache.make
+
+    def make(self, key, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return original(self, key, *args, **kwargs)
+        finally:
+            spent[str(key[:3])] = time.perf_counter() - t0
+
+    graphs.ProgramCache.make = make
+    try:
+        return fn(), spent
+    finally:
+        graphs.ProgramCache.make = original
+
+
+def level_split(checker) -> dict:
+    """Device time (CUDA events, back to back, 3 calls after 2 warm-ups) of
+    one eager level at the run's widest bucket from the frontier that
+    ``checker`` stopped at (its last level's new states: the depth target
+    left them unexpanded), and of the model's two parts of it: the
+    transition bodies (``packed_step``) and the properties
+    (``packed_properties``, the on-device linearizability check)."""
+    model = checker.model()
+    f = max(r["bucket"] for r in checker.level_log)
+    n = checker.level_log[-1]["unique"]
+    frontier, ebits = checker._bucket_inputs(f)
+    f_count = torch.full((), n, dtype=DTYPE, device="cuda")
+    cand_cap = checker._cand_cap_for(f)
+    stages = {
+        "packed_step": lambda: model.packed_step(frontier),
+        "packed_properties": lambda: model.packed_properties(frontier),
+        "superstep": lambda: checker._superstep(
+            frontier, ebits, f_count, checker._table, checker._disc_found,
+            checker._disc_fp, cand_cap),
+    }
+    out = {"bucket": f, "frontier": n, "cand_cap": cand_cap}
+    out.update({name: timed_ms(fn, reps=3) for name, fn in stages.items()})
+    out["rest"] = out["superstep"] - out["packed_step"] - out["packed_properties"]
+    return out
+
+
+def paxos3_phase():
+    """Paxos 3c/3s (W = 46, A = 672, 1,680 interleavings per linearizability
+    check) at full width: the depth-8 pin; then cold and warm to
+    ``PAXOS3_DEPTH`` on one model instance (the warm run captures
+    nothing), every property checked and the witness re-executed; one level
+    per dispatch to the same depth, equal level by level, with the peak
+    memory of every bucket and its widest level split by stage; ROUND3.md's probe depth; one warm run under
+    ``torch.profiler``. Returns the cold run's shapes and launches; drops
+    every model so that its graphs' memory goes back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    pin, _, _ = drive(PackedPaxos(3, 3), depth=8)
+    require((pin.state_count(), pin.unique_state_count()) == PAXOS3_DEPTH8,
+            f"paxos 3c/3s depth-8 pin {(pin.state_count(), pin.unique_state_count())}")
+    # One level per dispatch first: its eager levels leave their memory
+    # cached in the allocator, handed back before the graphs are made.
+    (single, single_wall, _), peaks = per_level_peaks(
+        lambda: drive(PackedPaxos(3, 3), depth=PAXOS3_DEPTH, levels_per_dispatch=1))
+    split = level_split(single)
+    del pin
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = PackedPaxos(3, 3)
+    torch.cuda.reset_peak_memory_stats()
+    (cold, cold_wall, cold_launches), captures = capture_times(
+        lambda: drive(model, depth=PAXOS3_DEPTH))
+    cold_peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.memory_reserved() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    warm, warm_wall, warm_launches = drive(model, depth=PAXOS3_DEPTH)
+    warm_peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = (cold.state_count(), cold.unique_state_count())
+    require((warm.state_count(), warm.unique_state_count()) == counts, "paxos 3c/3s warm vs cold counts")
+    # Buckets may differ: the warm run starts at the learned capacities.
+    require([r[:4] for r in levels(warm)] == [r[:4] for r in levels(cold)],
+            "paxos 3c/3s warm vs cold per-level counts")
+    require(warm.metrics()["graph_captures"] == 0, "the warm paxos 3c/3s run captured graphs")
+    require(all(n > 0 for n in cold_launches.values()), f"paxos 3c/3s kernel launches {cold_launches}")
+    t1 = time.perf_counter()
+    cold.assert_properties()
+    witness = cold.discoveries()["value chosen"].into_actions()
+    cold.assert_discovery("value chosen", witness)
+    paths_s = time.perf_counter() - t1
+    require([r[:4] for r in levels(single)] == [r[:4] for r in levels(cold)],
+            "paxos 3c/3s fused vs levels_per_dispatch=1, level by level")
+    bucket_peaks = {}
+    for bucket, gib in peaks:
+        bucket_peaks[bucket] = max(bucket_peaks.get(bucket, 0.0), gib)
+    probe, probe_wall, _ = drive(model, depth=ROUND3_PROBE[0])
+    probe_counts = (probe.state_count(), probe.unique_state_count())
+    prof, prof_wall, kernels = profiled(
+        lambda: model.checker().target_max_depth(PAXOS3_DEPTH).spawn_xla().join())
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    ops = sum(n for _, _, n in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:15]
+    deep = probe.level_log[-1]
+    growth = deep["unique"] / deep["frontier"]
+    need = 1 << max(int(deep["unique"] * growth) - 1, 1).bit_length()
+    m = cold.metrics()
+    emit({
+        "phase": "paxos3", "clients": 3, "servers": 3, "state_words": model.state_words,
+        "max_actions": model.max_actions, "target_max_depth": PAXOS3_DEPTH,
+        "depth8_pin": list(PAXOS3_DEPTH8), "generated": counts[0], "unique": counts[1],
+        "max_depth": cold.max_depth(), "level_log": [list(r[:6]) for r in levels(cold)],
+        "cold_wall_s": cold_wall, "warm_wall_s": warm_wall,
+        "states_per_s": counts[0] / warm_wall, "cold_states_per_s": counts[0] / cold_wall,
+        "dispatch_log": cold.dispatch_log, "graph_captures": m["graph_captures"],
+        "capture_s": m["graph_capture_s"], "capture_s_by_shape": captures,
+        "table_capacity": m["table_capacity"], "table_grows": m["table_grows"],
+        "frontier_capacity": m["frontier_capacity"],
+        "peak_mem_gib": {"cold": cold_peak, "warm": warm_peak,
+                         "reserved_after_cold": reserved},
+        "peak_mem_gib_by_bucket": bucket_peaks,
+        "launches": {"cold": cold_launches, "warm": warm_launches},
+        "witness_actions": len(witness), "paths_s": paths_s,
+        "single": {"wall_s": single_wall, "dispatches": len(single.dispatch_log),
+                   "levels_equal_fused": True},
+        "level_split_ms": split,
+        "round3_probe": {"target_max_depth": ROUND3_PROBE[0], "generated": probe_counts[0],
+                         "unique": probe_counts[1], "wall_s": probe_wall,
+                         "round3": list(ROUND3_PROBE[1:]),
+                         "equal": probe_counts == ROUND3_PROBE[1:]},
+        "deeper": {
+            # The probe's last frontier and, at its last level's growth,
+            # the bucket one more level would need and its [F, A, W] grid.
+            "frontier": deep["unique"], "growth": growth, "bucket": need,
+            "grid_gib": need * model.max_actions * model.state_words * 8 / 2**30,
+            "bucket_now": deep["bucket"],
+        },
+        "profile": {
+            "wall_s": prof_wall, "device_busy_ms": busy_ms if kernels else "not measured",
+            "device_idle_share": 1 - busy_ms / (prof_wall * 1e3) if kernels else "not measured",
+            "device_launches": ops, "device_ops_per_level": ops / len(prof.level_log),
+            "top_kernels": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in top],
+        },
+    })
+    shapes = {
+        "levels": [dict(r) for r in cold.level_log], "table_capacity": m["table_capacity"],
+        "generated": counts[0], "unique": counts[1], "A": model.max_actions,
+        "W": model.state_words,
+    }
+    del model, cold, warm, single, probe, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shapes, cold_launches
+
+
+def paxos3_growth_phase(counts) -> None:
+    """Paxos 3c/3s to ``PAXOS3_DEPTH`` from a small visited set: its
+    growths remake the programs of every bucket at the grown capacity, the
+    last with the 131,072 bucket's program in the cache, and the run keeps
+    the search and fits the card."""
+    torch.cuda.reset_peak_memory_stats()
+    (c, wall, _), captures = capture_times(
+        lambda: drive(PackedPaxos(3, 3), depth=PAXOS3_DEPTH, table_capacity=1 << 17))
+    m = c.metrics()
+    require((c.state_count(), c.unique_state_count()) == counts, "paxos 3c/3s counts after table growths")
+    require(m["table_grows"] >= 2, f"paxos 3c/3s table growths {m['table_grows']}")
+    emit({"phase": "paxos3_table_growth", "table_capacity": [1 << 17, m["table_capacity"]],
+          "table_grows": m["table_grows"], "graph_captures": m["graph_captures"],
+          "capture_s": m["graph_capture_s"], "capture_s_by_shape": captures, "wall_s": wall,
+          "dispatch_log": c.dispatch_log, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def device_ops(fn, calls: int = 5) -> dict:
@@ -615,6 +865,72 @@ def merge_phase(rng, c_main: int, m_main: int) -> dict:
     return {"max_abs_err": max(v["max_abs_err"] for v in out.values()), **timing}
 
 
+def paxos_kernel_phase(shapes, rng) -> dict:
+    """Both kernels against their plain versions, exactly, at the shapes of
+    the Paxos 3c/3s run (20 launches each), and timed there: the grid
+    compaction (P = W + 3 = 49 lanes) at its widest bucket's densest level,
+    the frontier compaction (P = W + 1 = 47) at the level with the most new
+    states, and ``merge_insert`` at its table capacity and widest candidate
+    buffer. The inputs are made on the card from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    A, W, lv = shapes["A"], shapes["W"], shapes["levels"]
+    f = max(r["bucket"] for r in lv)
+    top = max((r for r in lv if r["bucket"] == f), key=lambda r: r["generated"])
+    grid = torch.randint(0, 2**32, (f, A, W), dtype=DTYPE, device="cuda", generator=gen)
+    per_state = torch.randint(0, 2**32, (3, f), dtype=DTYPE, device="cuda", generator=gen)
+    live = torch.arange(f, device="cuda")[:, None] < top["frontier"]
+    density = top["generated"] / (top["frontier"] * A)
+    mask = (torch.rand((f, A), device="cuda", generator=gen) < density) & live
+    lanes = [grid[:, :, w] for w in range(W)] + [p[:, None].expand(f, A) for p in per_state]
+    cap = top["cand_cap"]
+    out = {"grid": check_compact("paxos3_grid", mask, lanes, cap, reps=20)}
+    n = out["grid"]["n_valid"]
+    flat = mask.reshape(-1)
+    grid_timing = kernel_timing(
+        lambda: compact(mask, lanes, cap), lambda: compact_plain(mask, lanes, cap),
+        lambda: grid.view(f * A, W)[flat],
+        compact_bytes(mask, len(lanes), n, cap, W, 3 * f * 8),
+    )
+    grid_timing["library_call"] = "grid.view(F*A, W)[mask]: the W grid words only"
+    grid_timing["sector_floor_ms"] = bound_ms(sector_bytes(mask, lanes, cap))
+    del grid, per_state, lanes, mask, flat
+    wide = max(lv, key=lambda r: r["unique"])
+    rows = torch.randint(0, 2**32, (W + 1, wide["cand_cap"]), dtype=DTYPE, device="cuda", generator=gen)
+    flags = np.zeros(wide["cand_cap"], bool)
+    flags[rng.choice(wide["generated"], wide["unique"], replace=False)] = True
+    fmask, flanes = torch.from_numpy(flags).cuda(), list(rows)
+    out["frontier"] = check_compact("paxos3_frontier", fmask, flanes, wide["bucket"], reps=20)
+    frontier_timing = time_compact(fmask, flanes, wide["bucket"], out["frontier"]["n_valid"], W + 1, 0)
+    del rows, fmask, flanes
+    c_tab, m_cand = shapes["table_capacity"], max(r["cand_cap"] for r in lv)
+    table, batch = _merge_case(rng, c_tab, shapes["unique"], m_cand)
+    out["merge"] = check_merge("paxos3_table", table, batch, reps=20)
+    nk = out["merge"]["n_keep"]
+    merge_timing = kernel_timing(
+        lambda: merge_insert(table, batch), lambda: merge_insert_plain(table, batch), None,
+        (2 * c_tab + 2 * m_cand) * 8 + 6 * min(nk, c_tab) * 8 + m_cand + 8,
+    )
+    del table, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "paxos3_kernels", "cases": out,
+          "grid": {"F": f, "A": A, "P": W + 3, "cap": cap, **grid_timing},
+          "frontier": {"M": wide["cand_cap"], "P": W + 1, "cap": wide["bucket"], **frontier_timing},
+          "merge_insert": {"C": c_tab, "m": m_cand, **merge_timing}})
+    drop = ("device_ops",)
+    return {
+        "compact": {
+            "max_abs_err": max(out["grid"]["max_abs_err"], out["frontier"]["max_abs_err"]),
+            "grid": {"F": f, "P": W + 3, "cap": cap, "n_valid": n,
+                     **{k: v for k, v in grid_timing.items() if k not in drop}},
+            "frontier": {"M": wide["cand_cap"], "P": W + 1, "cap": wide["bucket"],
+                         **{k: v for k, v in frontier_timing.items() if k not in drop}},
+        },
+        "merge_insert": {"max_abs_err": out["merge"]["max_abs_err"], "C": c_tab, "m": m_cand,
+                         **{k: v for k, v in merge_timing.items() if k not in drop}},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -627,18 +943,26 @@ def main() -> int:
     lookahead_sweep_phase(model)
     rm8_single_phase()
     graph_vs_eager_phase()
+    paxos_small_phase()
+    shapes, paxos_launches = paxos3_phase()
+    paxos3_growth_phase((shapes["generated"], shapes["unique"]))
     rng = np.random.default_rng(2024)
     b1 = compact_phase(checker, rng)
     m_main = max(r["cand_cap"] for r in checker.level_log)
     b2 = merge_phase(rng, checker.metrics()["table_capacity"], m_main)
-    kernels = [
-        {"name": "compact", "route": "cuda", "source": "stateright_tpu_torch/csrc/compact.cu",
-         "replaces": "stateright_tpu/ops/pallas_compact.py:229",
-         "launches": launches["compact"], "bound_by": "bytes", **b1},
-        {"name": "merge_insert", "route": "cuda", "source": "stateright_tpu_torch/csrc/merge.cu",
-         "replaces": "stateright_tpu/ops/pallas_merge.py:347",
-         "launches": launches["merge_insert"], "bound_by": "bytes", **b2},
-    ]
+    px = paxos_kernel_phase(shapes, rng)
+    kernels = []
+    for name, source, replaces, main in (
+        ("compact", "compact.cu", "stateright_tpu/ops/pallas_compact.py:229", b1),
+        ("merge_insert", "merge.cu", "stateright_tpu/ops/pallas_merge.py:347", b2),
+    ):
+        by_path = {"rm8": launches[name], "paxos3": paxos_launches[name]}
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"stateright_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "bound_by": "bytes", **main,
+            "max_abs_err": max(main["max_abs_err"], px[name]["max_abs_err"]), "paxos3": px[name],
+        })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

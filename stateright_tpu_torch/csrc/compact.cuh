@@ -42,7 +42,7 @@ namespace stpu {
 constexpr int kThreads = 512;                // threads per block
 constexpr int kFlags = 16;                   // flags per thread (one 16-byte load)
 constexpr long long kTile = (long long)kThreads * kFlags;
-constexpr int kMaxLanes = 32;
+constexpr int kMaxLanes = 64;  // a 64 x 24-byte Lanes block is 1.5 KB of kernel parameters
 
 // Element k of a lane is base[(k / cols) * s0 + (k % cols) * s1]: the
 // row-major flattening of a [M / cols, cols] view with element strides

@@ -20,9 +20,10 @@ level (:func:`replay_block`) with one host round trip per block.
   table_capacity, levels_per_dispatch)``: its graph on a card, or nothing
   on the CPU, where the checker runs the same gated level eagerly.
 - A :class:`ProgramCache` per model and device holds the carries, the
-  programs and the one graph memory pool all of a model's graphs share
-  (their intermediates are dead when a replay ends, and no two replays run
-  at once).
+  programs and the graph memory pool that all of a model's graphs at one
+  table capacity share (their intermediates are dead when a replay ends,
+  and no two replays run at once); a table growth frees it and starts
+  another.
 
 Graph replays run no Python, so the kernels' launch counters would stop
 counting: each program records how many launches of each kernel its graph
@@ -50,19 +51,23 @@ LOOKAHEAD = 1
 
 #: The block scalars, slots of the carry's int64 vector ``s``: block inputs
 #: the host writes (budget, remaining, shrink_below), the level counters,
-#: the overflow flags of the last live level (table, frontier, candidate),
-#: the visited set's occupied count, and ``live``, the gate of the next
-#: level.
+#: the overflow flags of the last live level (table, frontier, the model's
+#: codec, candidate), the visited set's occupied count, and ``live``, the
+#: gate of the next level.
 SLOTS = (
     "committed", "f_count", "tot_states", "tot_unique", "prev_gen",
-    "prev2_gen", "t_ovf", "f_ovf", "cc_ovf", "table_n", "live", "budget",
-    "remaining", "shrink_below",
+    "prev2_gen", "t_ovf", "f_ovf", "c_ovf", "cc_ovf", "table_n", "live",
+    "budget", "remaining", "shrink_below",
 )
 S = {name: i for i, name in enumerate(SLOTS)}
 #: The overflow flags, as a slice of ``s``.
 OVF = slice(S["t_ovf"], S["cc_ovf"] + 1)
 #: Rows of the per-level telemetry ``lvl``: frontier, generated, unique.
 LVL_ROWS = 3
+
+#: A capture first empties the allocator's cache when the warm-up left more
+#: than this fraction of the card's memory cached and unused.
+IDLE_CACHE_DEN = 8
 
 #: The kernel wrappers whose launches a graph can hold.
 KERNELS = (compact, merge_insert)
@@ -130,6 +135,14 @@ def capture(body: Callable[[], None], pool, side: torch.cuda.Stream) -> Tuple[ob
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):
         body()
+        # The capture allocates from the graph pool, which cannot reuse the
+        # blocks the warm-up left cached in the default pool: where those
+        # are a large share of the card (a wide model's level), hand them
+        # back first.
+        idle = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+        if idle > torch.cuda.get_device_properties(side.device).total_memory // IDLE_CACHE_DEN:
+            side.synchronize()
+            torch.cuda.empty_cache()
         graph.capture_begin(pool=pool)
         try:
             body()
@@ -170,10 +183,19 @@ class ProgramCache:
         return prog
 
     def drop(self, table_capacity: int, levels: int) -> None:
-        """Forget every program and the carry at ``table_capacity``."""
+        """Forget every program and the carry at ``table_capacity``. On a
+        card, the memory of the dropped graphs and carry is handed back
+        before the programs at the grown capacity are made (a wide model's
+        largest bucket could not hold two levels' worth at once), and later
+        captures go to a new pool: a pool whose graphs are all gone is
+        freed with them and cannot take another capture."""
         for key in [k for k in self.programs if k[2:] == (table_capacity, levels)]:
             del self.programs[key]
         self.carries.pop((table_capacity, levels), None)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            self.pool = torch.cuda.graph_pool_handle()
 
 
 def cache_for(model, device: torch.device) -> ProgramCache:

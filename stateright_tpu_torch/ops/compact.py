@@ -29,7 +29,7 @@ from . import _cuda
 from .words import DTYPE
 
 #: Lanes one launch takes (``stpu::kMaxLanes`` in ``csrc/compact.cuh``).
-MAX_LANES = 32
+MAX_LANES = 64
 
 
 def _check(mask: torch.Tensor, lanes: Sequence[torch.Tensor]) -> None:

@@ -22,8 +22,9 @@ These are the semantics of the reference package's plane-major superstep
 under ``compaction="pallas"`` with the merge insert, with its
 table/frontier/candidate overflow-and-retry protocol: a level that
 overflows any buffer is not committed; the buffer grows and the level runs
-again from the untouched pre-step state. Nothing in the superstep waits on
-the host.
+again from the untouched pre-step state. A codec overflow of the model is
+not a capacity: the level is not committed and the check raises. Nothing
+in the superstep waits on the host.
 
 Two dispatch paths, as in the reference:
 
@@ -45,7 +46,11 @@ Two dispatch paths, as in the reference:
 - ``state_words: int`` — W, 32-bit words per state.
 - ``max_actions: int`` — A, static action-slot count.
 - ``packed_init() -> np.ndarray[N0, W]`` (uint32) — packed initial states.
-- ``packed_step(words[F, W] int64) -> (next[F, A, W] int64, valid[F, A])``.
+- ``packed_step(words[F, W] int64) -> (next[F, A, W] int64, valid[F, A])``,
+  or ``(next, valid, ovf[F, A])`` where ``ovf`` marks an enabled action
+  whose successor does not fit the model's codec (the packed analogue of
+  stateright's capacity panics): any such action of a live state stops
+  the check with a loud error, never a retry or a dropped successor.
 - ``packed_properties(words[F, W]) -> bool[F, P]``, ordered as
   ``properties()``.
 - ``pack(state) / unpack(words)`` — the host codec.
@@ -303,10 +308,11 @@ class XlaChecker(Checker):
         """One BFS level at run bucket ``F = frontier.shape[0]`` from the
         pre-step state (``f_count`` a 0-dim device tensor), which it leaves
         untouched. Returns the next frontier, its eventually-bits, the
-        table, the discoveries and an int64 ``[6]`` device tensor: generated,
-        unique, next frontier count and the table, frontier and candidate
-        overflow flags. Nothing here waits on the host or copies between
-        host and device, so the level can be captured into a CUDA graph."""
+        table, the discoveries and an int64 ``[7]`` device tensor: generated,
+        unique, next frontier count and the table, frontier, codec and
+        candidate overflow flags. Nothing here waits on the host or copies
+        between host and device, so the level can be captured into a CUDA
+        graph."""
         f_cap = frontier.shape[0]
         A, W = self._A, self._W
         dev = self._device
@@ -326,8 +332,10 @@ class XlaChecker(Checker):
             self._pin(hit & f_valid, fhi, flo, i, disc_found, disc_fp)
 
         # Action grid, compacted in state-major order k = f*A + a.
-        nxt, valid = model.packed_step(frontier)  # [F, A, W], [F, A]
+        nxt, valid, *step_ovf = model.packed_step(frontier)  # [F, A, W], [F, A][, [F, A]]
         valid = valid & f_valid[:, None]
+        codec_ovf = (step_ovf[0] & valid).any() if step_ovf else torch.zeros(
+            (), dtype=torch.bool, device=dev)
         step_states = valid.sum()
         lanes = [nxt[:, :, w] for w in range(W)] + [
             lane[:, None].expand(f_cap, A) for lane in (fhi, flo, f_ebits)
@@ -359,7 +367,7 @@ class XlaChecker(Checker):
         out = torch.stack([
             step_states, step_unique, new_count,
             table_overflow.to(DTYPE), (new_count > f_cap).to(DTYPE),
-            (n_valid > cand_cap).to(DTYPE),
+            codec_ovf.to(DTYPE), (n_valid > cand_cap).to(DTYPE),
         ])
         return new_frontier, front_out[W], table, disc_found, disc_fp, out
 
@@ -556,9 +564,11 @@ class XlaChecker(Checker):
             nf, ne, table, dfound, dfp, out = self._superstep(
                 f_in, e_in, f_count, self._table, self._disc_found, self._disc_fp, cand_cap
             )
-            d_states, d_unique, ncount, t_ovf, f_ovf, cc_ovf = out.tolist()
-            committed = not (t_ovf or f_ovf or cc_ovf)
+            d_states, d_unique, ncount, t_ovf, f_ovf, c_ovf, cc_ovf = out.tolist()
+            committed = not (t_ovf or f_ovf or c_ovf or cc_ovf)
             self.dispatch_log.append((run_cap, int(committed)))
+            if c_ovf:
+                self._raise_codec_overflow()
             if t_ovf:
                 self._grow_table()
             elif f_ovf:
@@ -702,6 +712,9 @@ class XlaChecker(Checker):
             committed = s["committed"]
             self.dispatch_log.append((run_cap, committed))
             self._keep(carry, run_cap, s["f_count"])
+            # Nothing of this block's program is used past here: a table
+            # growth below drops it, and its graph's memory must go with it.
+            del prog, carry, body
             self.level_log.extend(
                 {
                     "depth": self._depth + i,
@@ -729,6 +742,8 @@ class XlaChecker(Checker):
             ):
                 self._target_reached = True
                 return
+            if s["c_ovf"]:
+                self._raise_codec_overflow()
             # Overflows resolve in the reference's order: table, frontier,
             # candidate buffer.
             if s["t_ovf"]:
@@ -755,6 +770,15 @@ class XlaChecker(Checker):
                 if snug:
                     run_cap = min(snug)
                     self._counters["shrink_exits"] += 1
+
+    def _raise_codec_overflow(self) -> None:
+        raise RuntimeError(
+            f"{type(self._model).__name__}: packed-codec capacity "
+            "overflow — a reachable successor does not fit the "
+            "model's declared field widths/slot counts. Raise the "
+            "model's capacity bounds (this is the loud failure the "
+            "packed toolkit guarantees; see stateright_tpu_torch.packing)."
+        )
 
     def _pin_found_names(self) -> None:
         """Records first-found witness fingerprints by property name."""

@@ -142,6 +142,26 @@ def test_kernel_decomposition_matches_plain(M, cap, threads):
     assert np.array_equal(got[:, :k], to_u32(want)[:, :k])
 
 
+@pytest.mark.parametrize("n_lanes", [47, 49])
+def test_kernel_decomposition_at_paxos_lane_counts(n_lanes):
+    """Paxos 3c/3s (W = 46): the grid compaction's W + 3 = 49 lanes over an
+    [F, 672] action grid, the frontier compaction's W + 1 = 47; past the
+    32 lanes a launch took before."""
+    assert n_lanes <= compact_mod.MAX_LANES
+    rng = np.random.default_rng(n_lanes)
+    F, A, cap = 13, 672, 64
+    mask = rng.random((F, A)) < 4 / A
+    planes = rng.integers(0, 2**32, (n_lanes, F * A), dtype=np.uint32)
+    got, n = _tiled_compact(mask.reshape(-1), planes, cap, threads=32)
+    lanes = [lane.reshape(F, A) for lane in from_u32(planes, "cpu")]
+    want, n_plain = compact(torch.from_numpy(mask), lanes, cap)
+    k = min(n, cap)
+    assert n == int(n_plain) == int(mask.sum()) > 0
+    assert want.shape == (n_lanes, cap)
+    assert np.array_equal(got[:, :k], to_u32(want)[:, :k])
+    assert np.array_equal(to_u32(want)[:, :k], planes[:, mask.reshape(-1)][:, :k])
+
+
 def test_cpu_tensors_take_the_plain_version():
     before = compact.launches
     compact(torch.ones(8, dtype=torch.bool), [torch.arange(8)], 8)

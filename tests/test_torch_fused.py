@@ -16,6 +16,7 @@ from stateright_tpu_torch import graphs
 from stateright_tpu_torch import xla as port_xla
 from stateright_tpu_torch.graphs import S
 from stateright_tpu_torch.models import two_phase_commit as port
+from stateright_tpu_torch.models.paxos import PackedPaxos
 from stateright_tpu_torch.ops import _cuda
 from stateright_tpu_torch.ops import sortedset as port_ss
 from stateright_tpu_torch.ops.compact import compact
@@ -28,6 +29,17 @@ EXPECTED_2PC = {3: (1_146, 288), 4: (8_258, 1_568), 5: (58_146, 8_832)}
 #: shrink-exit on.
 REF_PLANES = dict(dedup="sorted", cand_ladder=1, shrink_exit="on")
 TINY = dict(frontier_capacity=16, table_capacity=16)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test process: the suite runs several test
+    processes on one machine, and torch's default of a thread per core in
+    each oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _levels(checker, keys=("depth", "frontier", "generated", "unique")):
@@ -194,15 +206,18 @@ def test_the_gated_level_reads_nothing_on_the_host(monkeypatch):
                 torch.empty(batch.shape[1], dtype=torch.bool, device=table.device),
                 torch.empty((), dtype=DTYPE, device=table.device))
 
-    c = port.PackedTwoPhaseSys(3).checker().spawn_xla(**CPU)
+    # 2pc, and Paxos: its family bodies, codec-overflow flag and on-device
+    # linearizability check.
+    checkers = [m.checker().spawn_xla(**CPU) for m in (port.PackedTwoPhaseSys(3), PackedPaxos(2, 3))]
     monkeypatch.setattr(port_xla, "compact", fake_compact)
     monkeypatch.setattr(port_ss, "merge_insert", fake_merge)
     meta = torch.device("meta")
-    monkeypatch.setattr(c, "_device", meta)
-    carry = graphs.Carry(meta, c._W, c._P, 32, 1024)
-    c._gated_level(carry, 256, 2048)
-    with pytest.raises(RuntimeError, match="meta"):
-        bool(carry.s[S["live"]])
+    for c in checkers:
+        monkeypatch.setattr(c, "_device", meta)
+        carry = graphs.Carry(meta, c._W, c._P, 32, 1024)
+        c._gated_level(carry, 256, 2048)
+        with pytest.raises(RuntimeError, match="meta"):
+            bool(carry.s[S["live"]])
 
 
 def test_capacity_hints_size_the_next_checker(monkeypatch, tiny_cand_caps):
