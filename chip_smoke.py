@@ -17,7 +17,8 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    cold and then warm on one model instance, with every launch counter
    set to 0 just before each run and read just after: exact counts
    (18,507,778 generated, 1,745,408 unique), fewer dispatches than levels,
-   graphs captured by the cold run and reused by the warm one, both
+   graphs captured by the cold run and reused by the warm one (and which
+   of the cold run's programs no run replayed), both
    kernels launched, and every discovery re-executed to a valid witness
    path; then repeats the warm run three times for the spread and once
    under ``torch.profiler`` for the device time by kernel, the device
@@ -48,9 +49,29 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    version and, where one PyTorch call computes the same function, that
    call, the frontier compaction on its own too; and counts the device
    operations of one call under ``torch.profiler``;
-6. prints the ``{"kernels": [...]}`` line (launches summed over the rm=8
-   and Paxos 3c/3s main-path runs, each also by path) and, last, the
-   device line.
+6. compares the candidate ladder (``cand_ladder``, "auto" = 3 rungs, the
+   default of every run above) with the one-rung block (``cand_ladder=1``)
+   on fresh model instances, in turns: rm=8 cold and warm (exact counts,
+   the rung of every level, fall-throughs, captures and capture seconds,
+   walls, device busy and idle share under ``torch.profiler``, peak
+   memory) and Paxos 3c/3s to ``PAXOS3_DEPTH`` (the same; the ladder's run
+   also to depth 16 with its peak memory);
+7. drives single-copy-register: 3c/1s (``EXPECTED_MATRIX``'s 6,778 /
+   4,243) and the ordered 2c variant, each equal to the CPU level by level;
+   then ``PackedSingleCopyRegister(4, 1, device_exact=False)`` to depth 6
+   and ``(4, 2, device_exact=False)`` to its linearizability
+   counterexample through the host-verified path (the sampled pass on the
+   card, the host confirming), equal to the CPU in counts, levels,
+   discoveries and ``hv_stats``;
+8. holds both kernels against their plain versions at the shapes this
+   slice adds, exactly, and times them: the grid and frontier compactions
+   of the widest snug rung of rm=8 and of Paxos 3c/3s, a ``merge_insert``
+   of a few hundred rows into a 2^22-row table, and the host-verified
+   compaction of flagged frontier rows into ``host_verified_cap`` rows at
+   each host-verified run's widest rung (with a past-the-cap extra);
+9. prints the ``{"kernels": [...]}`` line (launches summed over every
+   main-path run: rm=8, Paxos 3c/3s, single-copy-register and the
+   host-verified runs, each also by path) and, last, the device line.
 
 Every line but the nvidia-smi one is a JSON object. Any failed check
 raises, so the script exits non-zero.
@@ -71,6 +92,10 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 from stateright_tpu_torch import graphs
 from stateright_tpu_torch.models.paxos import PackedPaxos
+from stateright_tpu_torch.models.single_copy_register import (
+    PackedSingleCopyRegister,
+    PackedSingleCopyRegisterOrdered,
+)
 from stateright_tpu_torch.models.two_phase_commit import PackedTwoPhaseSys
 from stateright_tpu_torch.ops import _cuda
 from stateright_tpu_torch.ops.compact import compact, compact_plain
@@ -92,6 +117,10 @@ EXPECTED_2PC = {
 #: (paxos.rs:321,345) and the reference's bounded pin at 3c/3s, depth 8.
 EXPECTED_PAXOS2 = (32_971, 16_668)
 PAXOS3_DEPTH8 = (3_279, 1_969)
+#: 3c/3s to ``target_max_depth(15)``, as the one-level path counts it.
+PAXOS3_DEPTH15 = (405_091, 222_592)
+#: ``bench.py`` ``EXPECTED_MATRIX["single-copy-register 3c/1s packed"]``.
+EXPECTED_SCR3 = (6_778, 4_243)
 #: The deepest ``target_max_depth`` up to 15 whose 3c/3s run fits one H100
 #: (its last level runs at the 131,072 bucket: a 32.4 GB action grid).
 PAXOS3_DEPTH = 15
@@ -103,6 +132,12 @@ M32 = 0xFFFFFFFF
 #: Clock cycles of the sleep kernel that holds the stream while timed calls
 #: are enqueued (~25 ms at the H100's clocks).
 SLEEP_CYCLES = 50_000_000
+#: The program recorder (:class:`ProgramUse`), installed by ``main``.
+PROGRAM_USE = None
+#: The kernels' names as the profiler lists them (``csrc/compact.cuh``,
+#: ``csrc/merge.cu``).
+COMPACT_SYMBOL = "compact_kernel"
+MERGE_SYMBOL = "merge_kernel"
 
 
 def emit(obj) -> None:
@@ -182,6 +217,13 @@ def small_phase() -> None:
           "rm4_dispatch_log": {"card": gpu.dispatch_log, "cpu": cpu.dispatch_log}})
 
 
+def rungs(c) -> list:
+    """``(depth, rows, cand_cap, bucket)`` of every level: the rung it ran
+    at and the bucket of its block."""
+    blocks = [b for b, n in c.dispatch_log for _ in range(n)]
+    return [(r["depth"], r["bucket"], r["cand_cap"], b) for r, b in zip(c.level_log, blocks)]
+
+
 def zero_launches() -> None:
     compact.launches = 0
     merge_insert.launches = 0
@@ -221,6 +263,8 @@ def check_rm8(c, launches: dict, what: str) -> dict:
         "dispatch_log": c.dispatch_log, "launches": launches,
         "graph_captures": m["graph_captures"], "capture_s": m["graph_capture_s"],
         "dead_replays": m["dead_replays"], "shrink_exits": m["shrink_exits"],
+        "cand_ladder_k": m["cand_ladder_k"], "cand_retries": m["cand_retries"],
+        "rungs": rungs(c),
         "table_capacity": m["table_capacity"], "frontier_capacity": m["frontier_capacity"],
         "grows": {k: m[k] for k in ("table_grows", "frontier_grows", "cand_grows")},
         "discoveries": {k: len(p) for k, p in found.items()},
@@ -234,9 +278,12 @@ def main_path_phase():
     run learned and replays the graphs it captured."""
     model = PackedTwoPhaseSys(8)
     torch.cuda.reset_peak_memory_stats()
+    PROGRAM_USE.segment = "rm8_cold"
     cold, cold_wall, cold_launches = drive(model)
-    cold_line = check_rm8(cold, cold_launches, "cold")
+    PROGRAM_USE.segment = "rm8_warm"
     warm, warm_wall, warm_launches = drive(model)
+    PROGRAM_USE.segment = "other"
+    cold_line = check_rm8(cold, cold_launches, "cold")
     warm_line = check_rm8(warm, warm_launches, "warm")
     for line in (cold_line, warm_line):
         require(line["dispatches"] < line["levels"], f"fused blocks: {line['dispatch_log']}")
@@ -245,13 +292,17 @@ def main_path_phase():
             f"the warm run captured {warm_line['graph_captures']} graphs")
     require([r[:4] for r in levels(warm)] == [r[:4] for r in levels(cold)],
             "warm and cold per-level counts")
+    require(cold_line["cand_ladder_k"] == 3, "the main path runs the 3-rung candidate ladder")
+    peak = torch.cuda.max_memory_allocated() / 2**30
     emit({
         "phase": "rm8", "cold_wall_s": cold_wall, "warm_wall_s": warm_wall,
-        "states_per_s": EXPECTED_2PC[8][0] / warm_wall,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "states_per_s": EXPECTED_2PC[8][0] / warm_wall, "peak_mem_gib": peak,
         "cold": cold_line, "warm": warm_line,
+        "program_use": PROGRAM_USE.summary("rm8_cold", ["rm8_warm"]),
     })
-    return model, warm, cold_launches
+    ladder = {"cold_wall_s": cold_wall, "peak_mem_gib": peak, "levels_log": levels(cold),
+              **{k: cold_line[k] for k in ("graph_captures", "capture_s", "cand_retries", "rungs")}}
+    return model, warm, cold_launches, ladder
 
 
 def profiled(fn):
@@ -440,24 +491,55 @@ def per_level_peaks(fn):
         XlaChecker._superstep = original
 
 
-def capture_times(fn):
-    """``fn()`` with the host seconds of each program made (a graph capture
-    with its warm-up level), by ``(run_cap, cand_cap, table_capacity)``."""
-    spent = {}
-    original = graphs.ProgramCache.make
+class ProgramUse:
+    """Every program made while installed (``ProgramCache.make``): its key
+    ``(run_cap, rows, cand_cap, table_capacity)``, the host seconds of its
+    capture and, by ``segment`` (the run under way), how many times a block
+    ran it (``Program.run``: a replay, or an eager level)."""
 
-    def make(self, key, *args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return original(self, key, *args, **kwargs)
-        finally:
-            spent[str(key[:3])] = time.perf_counter() - t0
+    def __init__(self):
+        self.entries = []
+        self.segment = "other"
+        make, run = graphs.ProgramCache.make, graphs.Program.run
+        use = self
 
-    graphs.ProgramCache.make = make
-    try:
-        return fn(), spent
-    finally:
-        graphs.ProgramCache.make = original
+        def tracked_make(cache, key, *args, **kwargs):
+            t0 = time.perf_counter()
+            prog = make(cache, key, *args, **kwargs)
+            prog.use = {"key": tuple(key[:4]), "capture_s": time.perf_counter() - t0,
+                        "made_in": use.segment, "runs": {}}
+            use.entries.append(prog.use)
+            return prog
+
+        def tracked_run(prog, *args, **kwargs):
+            if hasattr(prog, "use"):
+                prog.use["runs"][use.segment] = prog.use["runs"].get(use.segment, 0) + 1
+            return run(prog, *args, **kwargs)
+
+        graphs.ProgramCache.make, graphs.Program.run = tracked_make, tracked_run
+
+    def capture_s(self, segment: str) -> dict:
+        """Host seconds of each program made in ``segment`` (a graph capture
+        with its warm-up level), by ``(run_cap, rows, cand_cap)``."""
+        return {str(e["key"][:3]): e["capture_s"] for e in self.entries if e["made_in"] == segment}
+
+    def summary(self, first: str, later: list) -> dict:
+        """The programs made in segment ``first``: how many, how many of
+        them at a snug rung, those never run in ``first`` or ``later`` with
+        their capture seconds, and the rungs ``(run_cap, rows, cand_cap)``
+        that ``later`` ran and ``first`` never did: captured on first use,
+        these would be captured by the later runs."""
+        made = [e for e in self.entries if e["made_in"] == first]
+        idle = [e for e in made if not any(e["runs"].get(g, 0) for g in [first, *later])]
+        ran_first = {e["key"][:3] for e in made if e["runs"].get(first)}
+        ran_later = {e["key"][:3] for e in made if any(e["runs"].get(g) for g in later)}
+        return {
+            "captures": len(made), "snug_captures": sum(e["key"][1] < e["key"][0] for e in made),
+            "never_run": len(idle), "never_run_snug": sum(e["key"][1] < e["key"][0] for e in idle),
+            "never_run_capture_s": sum(e["capture_s"] for e in idle),
+            "never_run_keys": sorted(e["key"] for e in idle),
+            "run_later_not_first": sorted(ran_later - ran_first),
+        }
 
 
 def level_split(checker) -> dict:
@@ -510,14 +592,18 @@ def paxos3_phase():
     torch.cuda.empty_cache()
     model = PackedPaxos(3, 3)
     torch.cuda.reset_peak_memory_stats()
-    (cold, cold_wall, cold_launches), captures = capture_times(
-        lambda: drive(model, depth=PAXOS3_DEPTH))
+    PROGRAM_USE.segment = "paxos3_cold"
+    cold, cold_wall, cold_launches = drive(model, depth=PAXOS3_DEPTH)
+    captures = PROGRAM_USE.capture_s("paxos3_cold")
     cold_peak = torch.cuda.max_memory_allocated() / 2**30
     reserved = torch.cuda.memory_reserved() / 2**30
     torch.cuda.reset_peak_memory_stats()
+    PROGRAM_USE.segment = "paxos3_warm"
     warm, warm_wall, warm_launches = drive(model, depth=PAXOS3_DEPTH)
+    PROGRAM_USE.segment = "other"
     warm_peak = torch.cuda.max_memory_allocated() / 2**30
     counts = (cold.state_count(), cold.unique_state_count())
+    require(counts == PAXOS3_DEPTH15, f"paxos 3c/3s depth-{PAXOS3_DEPTH} counts {counts}")
     require((warm.state_count(), warm.unique_state_count()) == counts, "paxos 3c/3s warm vs cold counts")
     # Buckets may differ: the warm run starts at the learned capacities.
     require([r[:4] for r in levels(warm)] == [r[:4] for r in levels(cold)],
@@ -534,8 +620,14 @@ def paxos3_phase():
     bucket_peaks = {}
     for bucket, gib in peaks:
         bucket_peaks[bucket] = max(bucket_peaks.get(bucket, 0.0), gib)
+    torch.cuda.reset_peak_memory_stats()
+    PROGRAM_USE.segment = "paxos3_depth16"
     probe, probe_wall, _ = drive(model, depth=ROUND3_PROBE[0])
+    PROGRAM_USE.segment = "other"
+    probe_peak = torch.cuda.max_memory_allocated() / 2**30
+    probe_reserved = torch.cuda.memory_reserved() / 2**30
     probe_counts = (probe.state_count(), probe.unique_state_count())
+    require(probe_counts == ROUND3_PROBE[1:], f"paxos 3c/3s depth-16 counts {probe_counts}")
     prof, prof_wall, kernels = profiled(
         lambda: model.checker().target_max_depth(PAXOS3_DEPTH).spawn_xla().join())
     busy_ms = sum(ms for _, ms, _ in kernels)
@@ -550,10 +642,12 @@ def paxos3_phase():
         "max_actions": model.max_actions, "target_max_depth": PAXOS3_DEPTH,
         "depth8_pin": list(PAXOS3_DEPTH8), "generated": counts[0], "unique": counts[1],
         "max_depth": cold.max_depth(), "level_log": [list(r[:6]) for r in levels(cold)],
+        "rungs": rungs(cold), "cand_retries": m["cand_retries"],
         "cold_wall_s": cold_wall, "warm_wall_s": warm_wall,
         "states_per_s": counts[0] / warm_wall, "cold_states_per_s": counts[0] / cold_wall,
         "dispatch_log": cold.dispatch_log, "graph_captures": m["graph_captures"],
         "capture_s": m["graph_capture_s"], "capture_s_by_shape": captures,
+        "program_use": PROGRAM_USE.summary("paxos3_cold", ["paxos3_warm", "paxos3_depth16"]),
         "table_capacity": m["table_capacity"], "table_grows": m["table_grows"],
         "frontier_capacity": m["frontier_capacity"],
         "peak_mem_gib": {"cold": cold_peak, "warm": warm_peak,
@@ -567,7 +661,9 @@ def paxos3_phase():
         "round3_probe": {"target_max_depth": ROUND3_PROBE[0], "generated": probe_counts[0],
                          "unique": probe_counts[1], "wall_s": probe_wall,
                          "round3": list(ROUND3_PROBE[1:]),
-                         "equal": probe_counts == ROUND3_PROBE[1:]},
+                         "equal": probe_counts == ROUND3_PROBE[1:], "peak_mem_gib": probe_peak,
+                         "reserved_gib": probe_reserved,
+                         "rungs": rungs(probe), "cand_retries": probe.cand_retries},
         "deeper": {
             # The probe's last frontier and, at its last level's growth,
             # the bucket one more level would need and its [F, A, W] grid.
@@ -582,15 +678,20 @@ def paxos3_phase():
             "top_kernels": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in top],
         },
     })
+    ladder = {"cold_wall_s": cold_wall, "warm_wall_s": warm_wall, "profiled_wall_s": prof_wall,
+              "device_busy_ms": busy_ms if kernels else "not measured",
+              "graph_captures": m["graph_captures"], "capture_s": m["graph_capture_s"],
+              "peak_mem_gib": cold_peak, "reserved_gib": reserved, "cand_retries": m["cand_retries"]}
     shapes = {
-        "levels": [dict(r) for r in cold.level_log], "table_capacity": m["table_capacity"],
+        "levels": [dict(r) for r in cold.level_log], "rungs": rungs(cold),
+        "table_capacity": m["table_capacity"],
         "generated": counts[0], "unique": counts[1], "A": model.max_actions,
         "W": model.state_words,
     }
     del model, cold, warm, single, probe, prof
     gc.collect()
     torch.cuda.empty_cache()
-    return shapes, cold_launches
+    return shapes, cold_launches, ladder
 
 
 def paxos3_growth_phase(counts) -> None:
@@ -599,8 +700,10 @@ def paxos3_growth_phase(counts) -> None:
     last with the 131,072 bucket's program in the cache, and the run keeps
     the search and fits the card."""
     torch.cuda.reset_peak_memory_stats()
-    (c, wall, _), captures = capture_times(
-        lambda: drive(PackedPaxos(3, 3), depth=PAXOS3_DEPTH, table_capacity=1 << 17))
+    PROGRAM_USE.segment = "paxos3_growth"
+    c, wall, _ = drive(PackedPaxos(3, 3), depth=PAXOS3_DEPTH, table_capacity=1 << 17)
+    PROGRAM_USE.segment = "other"
+    captures = PROGRAM_USE.capture_s("paxos3_growth")
     m = c.metrics()
     require((c.state_count(), c.unique_state_count()) == counts, "paxos 3c/3s counts after table growths")
     require(m["table_grows"] >= 2, f"paxos 3c/3s table growths {m['table_grows']}")
@@ -613,42 +716,49 @@ def paxos3_growth_phase(counts) -> None:
     torch.cuda.empty_cache()
 
 
-def device_ops(fn, calls: int = 5) -> dict:
+def device_ops(fn, symbol: str, calls: int = 5, windows: int = 5) -> dict:
     """The device operations (kernels and memsets) of one call of ``fn``, by
     name: how many the call issues and their mean device time, from
     ``torch.profiler`` over ``calls`` calls after a warm-up step (the tracer
     misses the first memset of its window). The tracer now and then loses
-    whole calls' device records, so counts are per call of the most
-    frequent operation (each wrapper launches its kernel once a call)."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) as prof:
-        for _ in range(calls + 1):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    seen = [
-        e for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.count and not e.key.startswith("ProfilerStep")
-    ]
-    seen_calls = max((e.count for e in seen), default=1)
-    return {
-        e.key[:90]: {"per_call": e.count / seen_calls, "ms": e.self_device_time_total / e.count / 1e3,
-                     "seen": e.count}
-        for e in seen
-    }
+    device records, so a window counts only if it holds the kernel
+    ``symbol`` (launched once a call) ``calls`` times and every operation a
+    whole number of times a call; up to ``windows`` windows are profiled,
+    and the result is empty if none counts."""
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) as prof:
+            for _ in range(calls + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        seen = [
+            e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count and not e.key.startswith("ProfilerStep")
+        ]
+        if (sum(e.count for e in seen if symbol in e.key) == calls
+                and all(e.count % calls == 0 for e in seen)):
+            return {
+                e.key[:90]: {"per_call": e.count / calls,
+                             "ms": e.self_device_time_total / e.count / 1e3, "seen": e.count}
+                for e in seen
+            }
+    return {}
 
 
-def kernel_timing(kernel, plain, library, n_bytes: int) -> dict:
+def kernel_timing(kernel, plain, library, n_bytes: int, symbol: str) -> dict:
     """A kernel's wrapper timed with the device work alone (``ms``) and back
     to back (``ms_back_to_back``), its device operations per call under the
-    profiler, its plain version, the library call (or None) and the bound
-    of ``n_bytes`` over the memory rate."""
-    ops = device_ops(kernel)
+    profiler ("not measured" when no profiled window held every call's
+    ``symbol`` kernel), its plain version, the library call (or None) and the
+    bound of ``n_bytes`` over the memory rate."""
+    ops = device_ops(kernel, symbol)
     return {
         "ms": timed_ms(kernel, queued=True),
         "ms_back_to_back": timed_ms(kernel),
-        "device_ms": sum(op["ms"] * op["per_call"] for op in ops.values()),
-        "device_launches_per_call": sum(op["per_call"] for op in ops.values()),
+        "device_ms": sum(op["ms"] * op["per_call"] for op in ops.values()) if ops else "not measured",
+        "device_launches_per_call":
+            sum(op["per_call"] for op in ops.values()) if ops else "not measured",
         "plain_ms": timed_ms(plain),
         "library_ms": timed_ms(library) if library else None,
         "bound_ms": bound_ms(n_bytes),
@@ -735,7 +845,7 @@ def time_compact(mask, lanes, cap: int, n: int, read_words: int, per_row_bytes: 
     timing = kernel_timing(
         lambda: compact(mask, lanes, cap), lambda: compact_plain(mask, lanes, cap),
         lambda: stacked[:, flat],
-        compact_bytes(mask, len(lanes), n, cap, read_words, per_row_bytes),
+        compact_bytes(mask, len(lanes), n, cap, read_words, per_row_bytes), COMPACT_SYMBOL,
     )
     return {**timing, "sector_floor_ms": bound_ms(sector_bytes(mask, lanes, cap))}
 
@@ -859,7 +969,7 @@ def merge_phase(rng, c_main: int, m_main: int) -> dict:
     # merged rows, keep flags and n_keep written once.
     timing = kernel_timing(
         lambda: merge_insert(table, batch), lambda: merge_insert_plain(table, batch), None,
-        (2 * c + 2 * m) * 8 + 6 * min(n, c) * 8 + m + 8,
+        (2 * c + 2 * m) * 8 + 6 * min(n, c) * 8 + m + 8, MERGE_SYMBOL,
     )
     emit({"phase": "merge_insert", "cases": out, **timing})
     return {"max_abs_err": max(v["max_abs_err"] for v in out.values()), **timing}
@@ -889,7 +999,7 @@ def paxos_kernel_phase(shapes, rng) -> dict:
     grid_timing = kernel_timing(
         lambda: compact(mask, lanes, cap), lambda: compact_plain(mask, lanes, cap),
         lambda: grid.view(f * A, W)[flat],
-        compact_bytes(mask, len(lanes), n, cap, W, 3 * f * 8),
+        compact_bytes(mask, len(lanes), n, cap, W, 3 * f * 8), COMPACT_SYMBOL,
     )
     grid_timing["library_call"] = "grid.view(F*A, W)[mask]: the W grid words only"
     grid_timing["sector_floor_ms"] = bound_ms(sector_bytes(mask, lanes, cap))
@@ -908,7 +1018,7 @@ def paxos_kernel_phase(shapes, rng) -> dict:
     nk = out["merge"]["n_keep"]
     merge_timing = kernel_timing(
         lambda: merge_insert(table, batch), lambda: merge_insert_plain(table, batch), None,
-        (2 * c_tab + 2 * m_cand) * 8 + 6 * min(nk, c_tab) * 8 + m_cand + 8,
+        (2 * c_tab + 2 * m_cand) * 8 + 6 * min(nk, c_tab) * 8 + m_cand + 8, MERGE_SYMBOL,
     )
     del table, batch
     gc.collect()
@@ -931,37 +1041,280 @@ def paxos_kernel_phase(shapes, rng) -> dict:
     }
 
 
+def warm_profile(model, depth=None, **kw) -> dict:
+    """One warm run of ``model`` under ``torch.profiler``: its wall, the
+    device's busy time and its idle share of that (profiled) wall."""
+    def run():
+        b = model.checker()
+        if depth is not None:
+            b = b.target_max_depth(depth)
+        return b.spawn_xla(**kw).join()
+
+    c, wall, kernels = profiled(run)
+    require(c.metrics()["graph_captures"] == 0, "a profiled warm run captured graphs")
+    busy = sum(ms for _, ms, _ in kernels)
+    return {"profiled_wall_s": wall, "device_busy_ms": busy if kernels else "not measured",
+            "device_idle_share": 1 - busy / (wall * 1e3) if kernels else "not measured",
+            "device_ops_per_level": sum(n for _, _, n in kernels) / len(c.level_log)}
+
+
+def rm8_ladder_phase(ladder_model, ladder_line) -> None:
+    """The candidate ladder (``ladder_model``, warm from the main path) against
+    the one-rung block at rm=8: a fresh instance at ``cand_ladder=1`` cold
+    and warm (captures, peak memory), warm runs of both in turns (ladder,
+    one rung, one rung, ladder, twice), one profiled warm run each. Every
+    run exact, with the same levels."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = PackedTwoPhaseSys(8)
+    torch.cuda.reset_peak_memory_stats()
+    cold, cold_wall, launches = drive(one, cand_ladder=1)
+    cold_line = check_rm8(cold, launches, "cand_ladder=1 cold")
+    drive(one, cand_ladder=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require([r[:4] for r in levels(cold)] == [r[:4] for r in ladder_line["levels_log"]],
+            "rm=8 per-level counts, cand_ladder=1 vs 3")
+    require(all(rows == b for _, rows, _, b in cold_line["rungs"]), "cand_ladder=1 ran a snug rung")
+    walls = {3: [], 1: []}
+    for k in (3, 1, 1, 3, 3, 1, 1, 3):
+        model, kw = (ladder_model, {}) if k == 3 else (one, dict(cand_ladder=1))
+        c, wall, _ = drive(model, **kw)
+        require((c.state_count(), c.unique_state_count()) == EXPECTED_2PC[8], f"rm=8 cand_ladder={k} counts")
+        require(c.metrics()["graph_captures"] == 0, f"a warm cand_ladder={k} run captured graphs")
+        walls[k].append(wall)
+    emit({
+        "phase": "rm8_ladder",
+        "ladder": {"cand_ladder": 3, "cold_wall_s": ladder_line["cold_wall_s"],
+                   "warm_walls_s": walls[3], "peak_mem_gib": ladder_line["peak_mem_gib"],
+                   "graph_captures": ladder_line["graph_captures"], "capture_s": ladder_line["capture_s"],
+                   "cand_retries": ladder_line["cand_retries"], "rungs": ladder_line["rungs"],
+                   **warm_profile(ladder_model)},
+        "one_rung": {"cand_ladder": 1, "cold_wall_s": cold_wall, "warm_walls_s": walls[1],
+                     "peak_mem_gib": peak, "graph_captures": cold_line["graph_captures"],
+                     "capture_s": cold_line["capture_s"], "dispatch_log": cold_line["dispatch_log"],
+                     **warm_profile(one, cand_ladder=1)},
+    })
+    del one, cold, c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def paxos3_one_rung_phase(ladder: dict) -> None:
+    """Paxos 3c/3s to ``PAXOS3_DEPTH`` at ``cand_ladder=1`` on a fresh
+    instance, cold, warm and profiled warm, beside the ladder's numbers of
+    ``paxos3_phase`` (same call, same card)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = PackedPaxos(3, 3)
+    torch.cuda.reset_peak_memory_stats()
+    cold, cold_wall, _ = drive(model, depth=PAXOS3_DEPTH, cand_ladder=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.memory_reserved() / 2**30
+    warm, warm_wall, _ = drive(model, depth=PAXOS3_DEPTH, cand_ladder=1)
+    for c in (cold, warm):
+        require((c.state_count(), c.unique_state_count()) == PAXOS3_DEPTH15,
+                "paxos 3c/3s cand_ladder=1 counts")
+    require(warm.metrics()["graph_captures"] == 0, "the warm cand_ladder=1 paxos run captured graphs")
+    m = cold.metrics()
+    emit({"phase": "paxos3_ladder", "ladder": ladder, "one_rung": {
+        "cand_ladder": 1, "cold_wall_s": cold_wall, "warm_wall_s": warm_wall,
+        "graph_captures": m["graph_captures"], "capture_s": m["graph_capture_s"],
+        "peak_mem_gib": peak, "reserved_gib": reserved, "rungs": rungs(cold),
+        **warm_profile(model, PAXOS3_DEPTH, cand_ladder=1)}})
+    del model, cold, warm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def same_search(gpu, cpu, what: str) -> None:
+    """Card and CPU runs of one model: equal counts, levels, discoveries
+    (re-executed) and host-verified work."""
+    require((gpu.state_count(), gpu.unique_state_count(), gpu.max_depth())
+            == (cpu.state_count(), cpu.unique_state_count(), cpu.max_depth()), f"{what}: counts")
+    require([r[:4] for r in levels(gpu)] == [r[:4] for r in levels(cpu)], f"{what}: per-level counts")
+    dg, dc = gpu.discoveries(), cpu.discoveries()
+    require(set(dg) == set(dc) and all(dg[k].into_actions() == dc[k].into_actions() for k in dc),
+            f"{what}: discoveries")
+    for name, path in dg.items():
+        gpu.assert_discovery(name, path.into_actions())
+    hv = [{k: v for k, v in c.hv_stats.items() if k != "host_sec"} for c in (gpu, cpu)]
+    require(hv[0] == hv[1], f"{what}: hv_stats {hv}")
+
+
+def scr_phase() -> dict:
+    """Single-copy-register on the card: 3c/1s (exact) and the ordered 2c
+    variant, each equal to the CPU level by level; then the host-verified
+    path: ``(4, 1, device_exact=False)`` to depth 6 and ``(4, 2,
+    device_exact=False)`` to its linearizability counterexample, equal to
+    the CPU in counts, levels, discoveries and ``hv_stats``. Returns the
+    launches of each run and the shape of each host-verified run's widest
+    hv compaction (``hv_shape``)."""
+    cases = (
+        ("3c1s", lambda: PackedSingleCopyRegister(3, 1), None),
+        ("ordered_2c", lambda: PackedSingleCopyRegisterOrdered(2), None),
+        ("4c1s_hv_depth6", lambda: PackedSingleCopyRegister(4, 1, device_exact=False), 6),
+        ("4c2s_hv", lambda: PackedSingleCopyRegister(4, 2, device_exact=False), None),
+    )
+    out, launches, hv_shapes = {}, {}, {}
+    for name, build, depth in cases:
+        gpu, wall, launches[name] = drive(build(), depth=depth)
+        b = build().checker()
+        if depth is not None:
+            b = b.target_max_depth(depth)
+        t0 = time.perf_counter()
+        cpu = b.spawn_xla(device="cpu").join()
+        cpu_wall = time.perf_counter() - t0
+        same_search(gpu, cpu, f"single-copy-register {name}")
+        require(all(n > 0 for n in launches[name].values()), f"{name}: kernel launches {launches[name]}")
+        m = gpu.metrics()
+        out[name] = {
+            "generated": gpu.state_count(), "unique": gpu.unique_state_count(),
+            "max_depth": gpu.max_depth(), "state_words": gpu.model().state_words,
+            "max_actions": gpu.model().max_actions, "cold_wall_s": wall, "cpu_wall_s": cpu_wall,
+            "graph_captures": m["graph_captures"], "dispatch_log": gpu.dispatch_log,
+            "rungs": rungs(gpu), "hv": m["hv"], "launches": launches[name],
+            "discoveries": {k: len(p) for k, p in gpu.discoveries().items()},
+            "card_equals_cpu": True,
+        }
+        if gpu._hv_cap:
+            hv_shapes[name] = out[name]["hv_compaction"] = hv_shape(gpu)
+    require((out["3c1s"]["generated"], out["3c1s"]["unique"]) == EXPECTED_SCR3, "scr 3c/1s counts")
+    require(out["4c2s_hv"]["hv"]["confirmed"] == 1, "4c/2s: the host confirmed no counterexample")
+    emit({"phase": "single_copy_register", **out})
+    return launches, hv_shapes
+
+
+def hv_shape(c) -> dict:
+    """The widest host-verified compaction a run made: the rows of its
+    widest rung (every level compacts its rung's rows, flagged or not), the
+    frontier that level held, the words and fingerprints it moves, the
+    cap, and the run's flagged total (``hv_stats``; no level flags more)."""
+    level = max(c.level_log, key=lambda r: (r["bucket"], r["frontier"]))
+    return {"F": level["bucket"], "frontier": level["frontier"], "W": c.model().state_words,
+            "cap": c._hv_cap, "flagged": min(int(c.hv_stats["flagged"]), level["frontier"])}
+
+
+def snug_level(level_log, level_rungs):
+    """The widest level that ran at a snug rung: ``(level, block bucket)``."""
+    snug = [(r, b) for r, (_, rows, _, b) in zip(level_log, level_rungs) if rows < b]
+    require(bool(snug), "no level ran at a snug rung")
+    return max(snug, key=lambda t: (t[0]["bucket"], t[0]["generated"]))
+
+
+def rung_kernel_phase(c, shapes, hv_shapes, rng) -> dict:
+    """Both kernels against their plain versions at the shapes the ladder and
+    the host-verified path add (20 launches each, exactly), and timed: the
+    grid and frontier compactions of the widest snug level of rm=8 and of
+    Paxos 3c/3s (the frontier compaction into the block's bucket), a
+    ``merge_insert`` of 320 rows into a 2^22-row table, the host-verified
+    compaction of flagged frontier rows at each single-copy-register hv
+    run's widest rung (``hv_shapes``: its rows, live frontier, flagged
+    count and cap), and, as an adversarial extra no run makes, 4,096 rows
+    with a quarter flagged, past the cap of 128."""
+    comp, merge = {}, {}
+    level, bucket = snug_level(c.level_log, rungs(c))
+    f, a, cap = level["bucket"], c.model().max_actions, level["cand_cap"]
+    mask, lanes, _ = _grid_case(rng, f, a, level["generated"] / (f * a), cap)
+    check = check_compact("rm8_rung_grid", mask, lanes, cap, reps=20)
+    comp["rm8_rung_grid"] = {"F": f, "A": a, "P": len(lanes), "cap": cap, **check,
+                             **time_compact(mask, lanes, cap, check["n_valid"], 2, 3 * f * 8)}
+    fmask, flanes, fcap = _frontier_case(rng, {**level, "bucket": bucket})
+    check = check_compact("rm8_rung_frontier", fmask, flanes, fcap, reps=20)
+    comp["rm8_rung_frontier"] = {"M": fmask.numel(), "P": len(flanes), "cap": fcap, **check,
+                                 **time_compact(fmask, flanes, fcap, check["n_valid"], 3, 0)}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    A, W = shapes["A"], shapes["W"]
+    level, bucket = snug_level(shapes["levels"], shapes["rungs"])
+    f, cap = level["bucket"], level["cand_cap"]
+    grid = torch.randint(0, 2**32, (f, A, W), dtype=DTYPE, device="cuda", generator=gen)
+    per_state = torch.randint(0, 2**32, (3, f), dtype=DTYPE, device="cuda", generator=gen)
+    live = torch.arange(f, device="cuda")[:, None] < level["frontier"]
+    density = level["generated"] / (level["frontier"] * A)
+    mask = (torch.rand((f, A), device="cuda", generator=gen) < density) & live
+    lanes = [grid[:, :, w] for w in range(W)] + [p[:, None].expand(f, A) for p in per_state]
+    check = check_compact("paxos3_rung_grid", mask, lanes, cap, reps=20)
+    comp["paxos3_rung_grid"] = {"F": f, "A": A, "P": len(lanes), "cap": cap, **check,
+                                **time_compact(mask, lanes, cap, check["n_valid"], W, 3 * f * 8)}
+    del grid, per_state, lanes, mask
+    rows = torch.randint(0, 2**32, (W + 1, cap), dtype=DTYPE, device="cuda", generator=gen)
+    flags = np.zeros(cap, bool)
+    flags[rng.choice(level["generated"], level["unique"], replace=False)] = True
+    fmask, flanes = torch.from_numpy(flags).cuda(), list(rows)
+    check = check_compact("paxos3_rung_frontier", fmask, flanes, bucket, reps=20)
+    comp["paxos3_rung_frontier"] = {"M": cap, "P": W + 1, "cap": bucket, **check,
+                                    **time_compact(fmask, flanes, bucket, check["n_valid"], W + 1, 0)}
+    del rows, fmask, flanes
+    past_cap = {"F": 4096, "frontier": 4096, "W": hv_shapes["4c2s_hv"]["W"], "cap": 128,
+                "flagged": 1024}
+    for name, shape in [*hv_shapes.items(), ("hv_past_cap", past_cap)]:
+        f, hv_w = shape["F"], shape["W"]
+        frontier = torch.randint(0, 2**32, (f, hv_w), dtype=DTYPE, device="cuda", generator=gen)
+        fps = torch.randint(0, 2**32, (2, f), dtype=DTYPE, device="cuda", generator=gen)
+        hv_lanes = [frontier[:, w] for w in range(hv_w)] + list(fps)
+        flags = np.zeros(f, bool)
+        flags[rng.choice(shape["frontier"], shape["flagged"], replace=False)] = True
+        hmask = torch.from_numpy(flags).cuda()
+        check = check_compact(name, hmask, hv_lanes, shape["cap"], reps=20)
+        comp[name] = {**shape, "P": len(hv_lanes), **check,
+                      **time_compact(hmask, hv_lanes, shape["cap"], check["n_valid"], hv_w + 2, 0)}
+        del frontier, fps, hv_lanes, hmask
+    table, batch = _merge_case(rng, 1 << 22, 1_300_000, 320)
+    check = check_merge("m_320", table, batch, reps=20)
+    nk = check["n_keep"]
+    merge["m_320"] = {**check, **kernel_timing(
+        lambda: merge_insert(table, batch), lambda: merge_insert_plain(table, batch), None,
+        (2 * (1 << 22) + 2 * 320) * 8 + 6 * nk * 8 + 320 + 8, MERGE_SYMBOL)}
+    del table, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    drop = ("device_ops",)
+    comp = {k: {n: v for n, v in d.items() if n not in drop} for k, d in comp.items()}
+    merge = {k: {n: v for n, v in d.items() if n not in drop} for k, d in merge.items()}
+    emit({"phase": "rung_kernels", "compact": comp, "merge_insert": merge})
+    return {"compact": comp, "merge_insert": merge}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    global PROGRAM_USE
+    PROGRAM_USE = ProgramUse()
     device_phase()
     small_phase()
-    model, checker, launches = main_path_phase()
+    model, checker, launches, ladder = main_path_phase()
     repeat_and_profile_phase(model)
     host_split_phase()
     lookahead_sweep_phase(model)
+    rm8_ladder_phase(model, ladder)
     rm8_single_phase()
     graph_vs_eager_phase()
     paxos_small_phase()
-    shapes, paxos_launches = paxos3_phase()
+    shapes, paxos_launches, paxos_ladder = paxos3_phase()
+    paxos3_one_rung_phase(paxos_ladder)
     paxos3_growth_phase((shapes["generated"], shapes["unique"]))
+    scr_launches, hv_shapes = scr_phase()
     rng = np.random.default_rng(2024)
     b1 = compact_phase(checker, rng)
     m_main = max(r["cand_cap"] for r in checker.level_log)
     b2 = merge_phase(rng, checker.metrics()["table_capacity"], m_main)
     px = paxos_kernel_phase(shapes, rng)
+    rk = rung_kernel_phase(checker, shapes, hv_shapes, rng)
     kernels = []
     for name, source, replaces, main in (
         ("compact", "compact.cu", "stateright_tpu/ops/pallas_compact.py:229", b1),
         ("merge_insert", "merge.cu", "stateright_tpu/ops/pallas_merge.py:347", b2),
     ):
-        by_path = {"rm8": launches[name], "paxos3": paxos_launches[name]}
+        by_path = {"rm8": launches[name], "paxos3": paxos_launches[name],
+                   **{f"scr_{k}": v[name] for k, v in scr_launches.items()}}
+        new_shapes = rk[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"stateright_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
             "bound_by": "bytes", **main,
-            "max_abs_err": max(main["max_abs_err"], px[name]["max_abs_err"]), "paxos3": px[name],
+            "max_abs_err": max(main["max_abs_err"], px[name]["max_abs_err"],
+                               *(v["max_abs_err"] for v in new_shapes.values())),
+            "paxos3": px[name], "ladder_and_hv_shapes": new_shapes,
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

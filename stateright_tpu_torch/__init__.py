@@ -16,11 +16,23 @@ from .checker import Checker, CheckerBuilder, NondeterministicModelError, Path
 from .core import Expectation, Model, Property
 from .fingerprint import fingerprint
 from .report import ReportData, ReportDiscovery, Reporter, WriteReporter
+from .semantics import (
+    ConsistencyTester,
+    HistoryError,
+    LinearizabilityTester,
+    SequentialConsistencyTester,
+    SequentialSpec,
+)
 
 __all__ = [
     "Checker",
     "CheckerBuilder",
+    "ConsistencyTester",
     "Expectation",
+    "HistoryError",
+    "LinearizabilityTester",
+    "SequentialConsistencyTester",
+    "SequentialSpec",
     "Model",
     "NondeterministicModelError",
     "Path",

@@ -9,8 +9,8 @@ addresses) and ``ScriptActor``, which wait for a later slice:
 - :class:`Id` — actor address; an index for checked models.
 - :class:`ActorModel` — adapts a system of actors to the ``Model`` interface
   so every checker engine (including ``spawn_xla``) can explore it.
-- :class:`Network` — the in-state message collection (unordered
-  duplicating / unordered non-duplicating; the ordered one comes later).
+- :class:`Network` — the in-state message collection (ordered / unordered
+  duplicating / unordered non-duplicating).
 
 Design deltas from the reference, intentional and Python-idiomatic:
 

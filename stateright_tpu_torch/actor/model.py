@@ -54,7 +54,7 @@ class ActorModel(Model):
         ActorModel(cfg=..., init_history=...)
             .actor(Server())
             .actor(Client())
-            .init_network(Network.new_unordered_nonduplicating())
+            .init_network(Network.new_ordered())
             .lossy_network(True)
             .property(Expectation.ALWAYS, "safe", lambda model, state: ...)
             .record_msg_in(lambda cfg, history, env: ... or None)
@@ -172,7 +172,8 @@ class ActorModel(Model):
 
     def actions(self, state: ActorModelState, actions: List[Any]) -> None:
         # Deliverable envelopes: Drop option first when lossy, then Deliver
-        # (model.rs:228-252).
+        # (model.rs:228-252). Ordered networks only offer flow heads, which
+        # iter_deliverable already enforces.
         for env in state.network.iter_deliverable():
             if self._lossy:
                 actions.append(DropAction(env))

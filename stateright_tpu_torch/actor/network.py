@@ -19,7 +19,7 @@ deliverable iteration here sorts by stable fingerprint instead.  (Witness
 
 from __future__ import annotations
 
-from typing import Any, Dict, FrozenSet, Iterator, List, NamedTuple
+from typing import Any, Dict, FrozenSet, Iterator, List, NamedTuple, Tuple
 
 from ..fingerprint import fingerprint
 
@@ -33,14 +33,20 @@ class Envelope(NamedTuple):
 
 
 class Network:
-    """Base of the delivery-semantics variants (network.rs:45-68).
+    """Base of the three delivery-semantics variants (network.rs:45-68).
 
-    Construct via :meth:`new_unordered_duplicating` or
-    :meth:`new_unordered_nonduplicating`. The ordered variant and the
-    command line's network names wait for the models that use them.
+    Construct via :meth:`new_ordered`, :meth:`new_unordered_duplicating`,
+    or :meth:`new_unordered_nonduplicating`.
     """
 
     # --- constructors (network.rs:84-117) ---------------------------------
+
+    @staticmethod
+    def new_ordered(envelopes: List[Envelope] = ()) -> "OrderedNetwork":
+        net = OrderedNetwork({})
+        for env in envelopes:
+            net = net.send(env)
+        return net
 
     @staticmethod
     def new_unordered_duplicating(
@@ -60,8 +66,26 @@ class Network:
             net = net.send(env)
         return net
 
+    # --- command-line names (network.rs:119-146, 296-309) ----------------
+
+    @staticmethod
+    def names() -> List[str]:
+        return ["ordered", "unordered_duplicating", "unordered_nonduplicating"]
+
+    @staticmethod
+    def from_name(name: str) -> "Network":
+        try:
+            return {
+                "ordered": Network.new_ordered,
+                "unordered_duplicating": Network.new_unordered_duplicating,
+                "unordered_nonduplicating": Network.new_unordered_nonduplicating,
+            }[name]()
+        except KeyError:
+            raise ValueError(f"unable to parse network name: {name}") from None
+
     # --- protocol ---------------------------------------------------------
 
+    is_ordered = False
     is_duplicating = False
 
     def send(self, envelope: Envelope) -> "Network":
@@ -74,7 +98,7 @@ class Network:
         raise NotImplementedError
 
     def iter_deliverable(self) -> Iterator[Envelope]:
-        """Distinct deliverable envelopes."""
+        """Distinct deliverable envelopes (heads only for ordered flows)."""
         raise NotImplementedError
 
     def iter_all(self) -> Iterator[Envelope]:
@@ -200,3 +224,64 @@ class UnorderedNonDuplicatingNetwork(_SortCache, Network):
 
     def __repr__(self) -> str:
         return f"UnorderedNonDuplicating({sorted(map(repr, self.counts.items()))})"
+
+
+class OrderedNetwork(Network):
+    """Per-directed-pair FIFO flows; only flow heads are deliverable, and
+    empty flows are canonicalized away (network.rs:57-67, 221-293)."""
+
+    is_ordered = True
+    __slots__ = ("flows",)
+
+    def __init__(self, flows: Dict[Tuple[Any, Any], Tuple[Any, ...]]):
+        self.flows = {k: tuple(v) for k, v in flows.items() if v}
+
+    def send(self, envelope: Envelope) -> "OrderedNetwork":
+        flows = dict(self.flows)
+        key = (envelope.src, envelope.dst)
+        flows[key] = flows.get(key, ()) + (envelope.msg,)
+        return OrderedNetwork(flows)
+
+    def _remove_first(self, envelope: Envelope) -> "OrderedNetwork":
+        key = (envelope.src, envelope.dst)
+        if key not in self.flows:
+            raise KeyError(f"flow not found. src={envelope.src!r}, dst={envelope.dst!r}")
+        flow = self.flows[key]
+        try:
+            i = flow.index(envelope.msg)
+        except ValueError:
+            raise KeyError(f"message not found: {envelope.msg!r}") from None
+        flows = dict(self.flows)
+        remaining = flow[:i] + flow[i + 1:]
+        if remaining:
+            flows[key] = remaining
+        else:
+            del flows[key]
+        return OrderedNetwork(flows)
+
+    on_deliver = _remove_first
+    on_drop = _remove_first
+
+    def iter_deliverable(self) -> Iterator[Envelope]:
+        for src, dst in sorted(self.flows.keys()):
+            yield Envelope(src, dst, self.flows[(src, dst)][0])
+
+    def iter_all(self) -> Iterator[Envelope]:
+        for src, dst in sorted(self.flows.keys()):
+            for msg in self.flows[(src, dst)]:
+                yield Envelope(src, dst, msg)
+
+    def __len__(self) -> int:
+        return sum(len(f) for f in self.flows.values())
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, OrderedNetwork) and self.flows == other.flows
+
+    def __hash__(self) -> int:
+        return hash(("ordered", frozenset(self.flows.items())))
+
+    def __fingerprint_key__(self):
+        return ("ordered", self.flows)
+
+    def __repr__(self) -> str:
+        return f"Ordered({sorted(map(repr, self.flows.items()))})"

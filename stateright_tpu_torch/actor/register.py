@@ -13,7 +13,8 @@ and the client is the plain :class:`RegisterClient` actor — so server states
 appear unwrapped in ``actor_states``.
 
 :class:`PackedClientsMixin` is the batched tensor form of the clients'
-protocol half for packed models (``models/paxos.py``).
+protocol half for packed models (``models/paxos.py``,
+``models/single_copy_register.py``).
 """
 
 from __future__ import annotations
@@ -158,6 +159,17 @@ class PackedClientsMixin:
         b.array("cl_await", self.C, 2)
         b.array("cl_ops", self.C, 2)
 
+    def _client_values(self):
+        """The closed register-value universe: the unwritten ``None`` plus
+        each client's written value (client k writes chr('A'+k))."""
+        return [None] + [chr(ord("A") + k) for k in range(self.C)]
+
+    def _val_code(self, val) -> int:
+        try:
+            return self.values.index(val)
+        except ValueError:
+            raise self._OverflowError32(f"value outside universe: {val!r}") from None
+
     # --- host codec --------------------------------------------------------
 
     def _pack_clients(self, fields, state) -> None:
@@ -292,11 +304,12 @@ class PackedClientsMixin:
         L = self._layout
         L.set_(w, name, torch.where(cond, value, L.get(w, name, idx)), idx)
 
-    def device_linearizable_register(self, words):
+    def device_linearizable_register(self, words, pattern_limit=None):
         """EXACT linearizability of each packed history in ``words[F, W]``,
         entirely on the device (``bool[F]``): the static-enumeration
         serializer (:func:`stateright_tpu_torch.semantics.device.device_serializable`)
-        over the Register spec."""
+        over the Register spec. With ``pattern_limit`` it is the sampled,
+        one-sided pass of a host-verified property."""
         from ..semantics.device import DeviceRegister, device_serializable
 
         if not self._hist.real_time:
@@ -305,7 +318,18 @@ class PackedClientsMixin:
                 "real_time=True: a prereq-free history would silently "
                 "degrade the check to sequential consistency"
             )
-        return device_serializable(self._hist, words, DeviceRegister(), real_time=True)
+        return device_serializable(self._hist, words, DeviceRegister(), real_time=True,
+                                   pattern_limit=pattern_limit)
+
+    def device_sequentially_consistent_register(self, words, pattern_limit=None):
+        """EXACT sequential consistency of each packed history on the
+        device: the same enumeration without the real-time constraint (the
+        device counterpart of ``SequentialConsistencyTester``); recorded
+        prereqs, if any, are ignored."""
+        from ..semantics.device import DeviceRegister, device_serializable
+
+        return device_serializable(self._hist, words, DeviceRegister(), real_time=False,
+                                   pattern_limit=pattern_limit)
 
     # --- batched delivery bodies -------------------------------------------
     # Each takes the pre-state words[F, 1, W], this family's successors

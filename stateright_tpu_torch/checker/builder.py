@@ -24,8 +24,12 @@ class CheckerBuilder:
 
     def spawn_xla(self, **kwargs) -> Checker:
         """Level-synchronous BFS with the whole frontier expanded per step
-        on the device (``stateright_tpu_torch.xla.XlaChecker``; keyword
-        arguments go to it). Runs on CUDA unless ``device="cpu"``."""
+        on the device (``stateright_tpu_torch.xla.XlaChecker``). Keyword
+        arguments go to it: ``device`` (CUDA unless ``"cpu"``),
+        ``frontier_capacity``, ``table_capacity``, ``levels_per_dispatch``
+        (32), ``shrink_exit`` ("auto"), ``cand_ladder`` ("auto" = 3 rungs,
+        or 1..3), ``host_verified_cap`` (128 candidate rows a level for each
+        host-verified property) and ``checkpoint``."""
         from ..xla import XlaChecker
 
         return XlaChecker(self, **kwargs)

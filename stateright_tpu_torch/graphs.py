@@ -4,26 +4,32 @@ Counterpart of the fused-dispatch program cache of
 ``stateright_tpu/xla.py``: ``_fused_key``/``_fused_for`` (one program per
 shape key), the cache on the model instance (``_xla_superstep_cache``),
 ``_mark_dispatch_shape`` and ``_compiled_run_caps``. The reference compiles
-its whole level loop into one ``lax.while_loop``. Here the loop body, one
-BFS level gated on the device (``XlaChecker._gated_level``), is captured
-once per shape key as a CUDA graph, and a block replays that graph once per
-level (:func:`replay_block`) with one host round trip per block.
+its whole level loop into one ``lax.while_loop`` whose body picks one of up
+to three candidate rungs with ``lax.switch``. Here the loop body, one BFS
+level gated on the device (``XlaChecker._gated_level``) at one rung, is
+captured once per shape key as a CUDA graph, and a block replays one rung's
+graph per level (:func:`replay_block`), the host choosing the rung from the
+last level's counts, with one host round trip per level already paid for
+the gate.
 
 - A :class:`Carry` holds the static device buffers the gated level reads and
   updates in place: the frontier and its eventually-bits per run bucket,
-  the visited-set planes, the discoveries, the block scalars (:data:`SLOTS`)
-  and the per-level telemetry. Every graph of a model at one table capacity
-  shares one carry: the graphs never run at the same time, and a checker
-  loads its state into the carry at a block's start and clones what it
-  keeps at the block's end.
-- A :class:`Program` is one shape key ``(run_cap, cand_cap,
-  table_capacity, levels_per_dispatch)``: its graph on a card, or nothing
-  on the CPU, where the checker runs the same gated level eagerly.
+  the visited-set planes, the discoveries, the host-verified candidates of
+  the block, the block scalars (:data:`SLOTS`) and the per-level telemetry.
+  Every graph of a model at one table capacity shares one carry: the graphs
+  never run at the same time, and a checker loads its state into the carry
+  at a block's start and clones what it keeps at the block's end.
+- A :class:`Program` is one shape key ``(run_cap, rows, cand_cap,
+  table_capacity, levels_per_dispatch, hv_cap)``: the gated level of bucket
+  ``run_cap`` run on its first ``rows`` frontier rows at candidate cap
+  ``cand_cap`` (a rung of the candidate ladder; ``rows == run_cap`` is the
+  full rung). It holds its graph on a card, or nothing on the CPU, where the
+  checker runs the same gated level eagerly.
 - A :class:`ProgramCache` per model and device holds the carries, the
-  programs and the graph memory pool that all of a model's graphs at one
-  table capacity share (their intermediates are dead when a replay ends,
-  and no two replays run at once); a table growth frees it and starts
-  another.
+  programs (every rung of each bucket a block ran at), and the graph
+  memory pool that all of a model's graphs at one table capacity share
+  (their intermediates are dead when a replay ends, and no two replays run
+  at once); a table growth frees it and starts another.
 
 Graph replays run no Python, so the kernels' launch counters would stop
 counting: each program records how many launches of each kernel its graph
@@ -32,8 +38,9 @@ holds, and :meth:`Program.run` adds them per replay.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .ops.compact import compact
@@ -46,24 +53,30 @@ from .ops.words import DTYPE
 #: trip but runs up to ``LOOKAHEAD - 1`` dead levels at the block's end,
 #: and a dead level costs a whole superstep: its gate discards the work,
 #: it does not skip it. ``chip_smoke.py``'s ``lookahead_sweep`` chose 1
-#: (PERF.md).
+#: (PERF.md). With the candidate ladder, a level's rung is chosen from its
+#: predecessor's scalars, which the host has read only when ``LOOKAHEAD`` is
+#: 1; past 1, every level queued before its predecessor's scalars are read
+#: runs the full rung (:func:`replay_block`).
 LOOKAHEAD = 1
 
 #: The block scalars, slots of the carry's int64 vector ``s``: block inputs
 #: the host writes (budget, remaining, shrink_below), the level counters,
 #: the overflow flags of the last live level (table, frontier, the model's
-#: codec, candidate), the visited set's occupied count, and ``live``, the
-#: gate of the next level.
+#: codec, candidate), the visited set's occupied count, ``live``, the gate
+#: of the next level, ``force_full``, set when a snug rung's candidate
+#: buffer overflowed so that the same frontier re-runs at full width, and
+#: ``retries``, the block's count of such fall-throughs.
 SLOTS = (
     "committed", "f_count", "tot_states", "tot_unique", "prev_gen",
     "prev2_gen", "t_ovf", "f_ovf", "c_ovf", "cc_ovf", "table_n", "live",
-    "budget", "remaining", "shrink_below",
+    "budget", "remaining", "shrink_below", "force_full", "retries",
 )
 S = {name: i for i, name in enumerate(SLOTS)}
 #: The overflow flags, as a slice of ``s``.
 OVF = slice(S["t_ovf"], S["cc_ovf"] + 1)
-#: Rows of the per-level telemetry ``lvl``: frontier, generated, unique.
-LVL_ROWS = 3
+#: Rows of the per-level telemetry ``lvl``: frontier, generated, unique,
+#: and the rung the level ran at (its frontier rows and candidate cap).
+LVL_ROWS = 5
 
 #: A capture first empties the allocator's cache when the warm-up left more
 #: than this fraction of the card's memory cached and unused.
@@ -74,9 +87,12 @@ KERNELS = (compact, merge_insert)
 
 
 class Carry:
-    """The static buffers of the gated level at one table capacity."""
+    """The static buffers of the gated level at one table capacity. The
+    block's host-verified candidates of ``n_hv`` properties take ``hv_cap``
+    rows each: state words, fingerprint and the count flagged."""
 
-    def __init__(self, device, words: int, n_props: int, levels: int, table_capacity: int):
+    def __init__(self, device, words: int, n_props: int, levels: int, table_capacity: int,
+                 n_hv: int = 0, hv_cap: int = 0):
         z = dict(dtype=DTYPE, device=device)
         self.words = words
         self.s = torch.zeros(len(SLOTS), **z)
@@ -86,6 +102,9 @@ class Carry:
         self.host_found = torch.zeros(n_props, dtype=torch.bool, device=device)
         self.lvl = torch.zeros((LVL_ROWS, levels), **z)
         self.slots = torch.arange(levels, device=device)
+        self.hv_w = torch.zeros((n_hv, hv_cap, words), **z)
+        self.hv_f = torch.zeros((n_hv, hv_cap, 2), **z)
+        self.hv_c = torch.zeros(n_hv, **z)
         self._frontiers: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def frontier(self, run_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -100,7 +119,8 @@ class Carry:
 
     def tensors(self) -> List[torch.Tensor]:
         """Every buffer, in a fixed order (for bitwise comparisons)."""
-        out = [self.s, *self.table, self.disc_found, self.disc_fp, self.host_found, self.lvl]
+        out = [self.s, *self.table, self.disc_found, self.disc_fp, self.host_found, self.lvl,
+               self.hv_w, self.hv_f, self.hv_c]
         for run_cap in sorted(self._frontiers):
             out.extend(self._frontiers[run_cap])
         return out
@@ -161,14 +181,18 @@ class ProgramCache:
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
         #: The stream that warm-ups and captures run on.
         self.side = torch.cuda.Stream(device) if cuda else None
-        self.carries: Dict[Tuple[int, int], Carry] = {}
-        #: ``(run_cap, cand_cap, table_capacity, levels_per_dispatch)`` -> Program.
-        self.programs: Dict[Tuple[int, int, int, int], Program] = {}
+        #: ``(table_capacity, levels_per_dispatch, hv_cap)`` -> Carry.
+        self.carries: Dict[Tuple[int, int, int], Carry] = {}
+        #: ``(run_cap, rows, cand_cap, table_capacity, levels_per_dispatch,
+        #: hv_cap)`` -> Program.
+        self.programs: Dict[Tuple[int, ...], Program] = {}
 
-    def carry(self, words: int, n_props: int, table_capacity: int, levels: int) -> Carry:
-        key = (table_capacity, levels)
+    def carry(self, words: int, n_props: int, table_capacity: int, levels: int,
+              n_hv: int = 0, hv_cap: int = 0) -> Carry:
+        key = (table_capacity, levels, hv_cap)
         if key not in self.carries:
-            self.carries[key] = Carry(self.device, words, n_props, levels, table_capacity)
+            self.carries[key] = Carry(self.device, words, n_props, levels, table_capacity,
+                                      n_hv, hv_cap)
         return self.carries[key]
 
     def make(self, key, carry: Carry, body: Callable[[], None], graph: bool) -> Program:
@@ -189,9 +213,10 @@ class ProgramCache:
         largest bucket could not hold two levels' worth at once), and later
         captures go to a new pool: a pool whose graphs are all gone is
         freed with them and cannot take another capture."""
-        for key in [k for k in self.programs if k[2:] == (table_capacity, levels)]:
+        for key in [k for k in self.programs if k[3:5] == (table_capacity, levels)]:
             del self.programs[key]
-        self.carries.pop((table_capacity, levels), None)
+        for key in [k for k in self.carries if k[:2] == (table_capacity, levels)]:
+            del self.carries[key]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
@@ -206,35 +231,52 @@ def cache_for(model, device: torch.device) -> ProgramCache:
     return caches[str(device)]
 
 
-def replay_block(run_level: Callable[[], None], live: torch.Tensor, budget: int) -> int:
-    """Run up to ``budget`` gated levels; ``live`` is the carry's flag that
-    each level sets to the gate of the next. Returns how many dead levels
-    ran: a dead level ran with its gate closed and changed nothing.
+def replay_block(run_level: Callable[[Optional[np.ndarray]], None], s: torch.Tensor,
+                 loaded: np.ndarray, budget: int) -> int:
+    """Run the gated levels of a block: up to ``budget`` committed levels,
+    plus one replay for each candidate-ladder fall-through (a forced
+    full-width level either commits or exits, so there are at most
+    ``2 * budget`` replays). ``s`` is the carry's block scalars, which each
+    level updates; ``loaded`` is the host's copy of them as loaded.
+    ``run_level(row)`` enqueues one level given the block scalars its
+    predecessor left (``loaded`` for the first), or None when they were not
+    read yet. Returns how many dead levels ran: a dead level ran with its
+    gate closed and changed nothing.
 
-    On the CPU each level's flag is read right after it. On a card the
+    On the CPU each level's scalars are read right after it (and, as on a
+    card, given to the next level only when ``LOOKAHEAD`` is 1). On a card the
     levels are enqueued ``LOOKAHEAD`` ahead: after each, an async copy of
-    its flag into pinned memory and an event; before level ``i +
-    LOOKAHEAD`` the host waits on level ``i``'s event and stops once a
-    flag reads false."""
-    if live.device.type == "cpu":
-        for _ in range(budget):
-            run_level()
-            if not bool(live):
+    ``s`` into pinned memory and an event; before level ``i + LOOKAHEAD``
+    the host waits on level ``i``'s event and stops once its ``live`` reads
+    false. With ``LOOKAHEAD`` 1 that wait is on the predecessor, so every
+    level is given its predecessor's scalars and no synchronisation is
+    added for the choice of rung."""
+    live = S["live"]
+    limit = 2 * budget
+    if s.device.type == "cpu":
+        row = loaded
+        for _ in range(limit):
+            run_level(row)
+            if not s[live]:
                 break
+            row = s.numpy().copy() if LOOKAHEAD == 1 else None
         return 0
-    flags = torch.empty(budget, dtype=DTYPE, pin_memory=True)
-    host = flags.numpy()
+    rows = torch.empty((limit, len(SLOTS)), dtype=DTYPE, pin_memory=True)
+    host = rows.numpy()
     stream = torch.cuda.current_stream()
     events: List[torch.cuda.Event] = []
-    for n in range(budget):
+    for n in range(limit):
         if n >= LOOKAHEAD:
             events[n - LOOKAHEAD].synchronize()
-            if not host[n - LOOKAHEAD]:
+            if not host[n - LOOKAHEAD][live]:
                 break
-        run_level()
-        flags[n].copy_(live, non_blocking=True)
+        if n == 0:
+            run_level(loaded)
+        else:
+            run_level(host[n - 1] if LOOKAHEAD == 1 else None)
+        rows[n].copy_(s, non_blocking=True)
         events.append(stream.record_event())
     stream.synchronize()
     ran = len(events)
-    live_levels = next((i + 1 for i in range(ran) if not host[i]), ran)
+    live_levels = next((i + 1 for i in range(ran) if not host[i][live]), ran)
     return ran - live_levels

@@ -8,21 +8,23 @@ stateright's panics on broken invariants).
 - :class:`Layout` / :class:`LayoutBuilder` — named bit-fields over 32-bit
   words. Fields never span word boundaries; array fields are uniformly
   strided so an index held in a tensor can address them.
+- :class:`FifoLanes` — the packed ordered network (network.rs:57-67):
+  bounded FIFO lanes, one per directed flow.
 - :class:`BoundedHistory` — a fixed-width encoding of the backtracking
   consistency testers (``semantics/linearizability.rs:57-126``) for
   clients with statically bounded operation counts; converts exactly
   to/from :class:`~stateright_tpu_torch.semantics._backtracking.BacktrackingTester`.
 
-The reference's ``SlotMultiset`` and ``FifoLanes`` (the packed
-non-duplicating and ordered networks) wait for the models that use them.
+The reference's ``SlotMultiset`` (the packed non-duplicating network)
+waits for a model that uses it.
 
 Device side, words are ``[..., W]`` int64 tensors holding 32-bit values
 (``ops/words.py``), batched over any leading shape, and an element index
 is a Python int or an int64 tensor that broadcasts against the batch: a
 read of a tensor index is a ``take_along_dim`` on the word axis, a write a
 ``scatter_``. :meth:`Layout.set` returns a new tensor like the reference's;
-:meth:`Layout.set_` and :class:`BoundedHistory`'s device methods write in
-place, so a model's transition bodies update one buffer per action family
+:meth:`Layout.set_` and the device methods of :class:`FifoLanes` and
+:class:`BoundedHistory` write in place, so a model's transition bodies update one buffer per action family
 rather than a copy per field. The reference's scatter-free
 ``_word_update`` works around an XLA:TPU miscompile and has no
 counterpart here.
@@ -245,6 +247,90 @@ class Layout:
                     for i in range(f.count)
                 ]
         return out
+
+
+# --------------------------------------------------------------------------
+# FIFO lanes: the packed ordered network.
+# --------------------------------------------------------------------------
+
+
+class FifoLanes:
+    """``lanes`` directed flows, each a bounded FIFO of up to ``depth``
+    message codes (the packed ordered network, network.rs:57-67). Only lane
+    heads are deliverable; delivering pops the head and shifts the lane.
+
+    Codes are stored +1 (0 = empty cell) in a strided array field of
+    ``depth`` elements per lane, plus a length field per lane. The device
+    methods take ``words[..., W]``, a lane index (a Python int or an int64
+    tensor broadcast against the batch) and a bool ``enabled``; ``push`` and
+    ``pop`` update ``words`` in place.
+    """
+
+    def __init__(self, builder: LayoutBuilder, name: str, lanes: int, depth: int, code_bits: int):
+        if code_bits + 1 > 32:
+            raise ValueError("code_bits must leave room for the +1 empty sentinel")
+        self.lanes = lanes
+        self.depth = depth
+        self.code_bits = code_bits
+        self.cells = f"{name}_cells"
+        self.lens = f"{name}_lens"
+        builder.array(self.cells, lanes * depth, min(code_bits + 1, 32))
+        builder.array(self.lens, lanes, max(depth.bit_length(), 1))
+        self.layout: Optional[Layout] = None
+
+    def bind(self, layout: Layout) -> "FifoLanes":
+        self.layout = layout
+        return self
+
+    # --- device ops --------------------------------------------------------
+
+    def length(self, words: torch.Tensor, lane: Index) -> torch.Tensor:
+        return self.layout.get(words, self.lens, lane)
+
+    def head(self, words: torch.Tensor, lane: Index) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(code, nonempty)`` of the lane head; the code of an empty lane
+        is ``-1 & MASK32``, as the reference's uint32 wraps."""
+        raw = self.layout.get(words, self.cells, lane * self.depth)
+        return (raw - 1) & MASK32, raw != 0
+
+    def push(self, words: torch.Tensor, lane: Index, code, enabled=True) -> torch.Tensor:
+        """Append ``code`` to the lane in place; returns the bool
+        ``overflow`` (the lane was full; nothing is written)."""
+        L = self.layout
+        n = self.length(words, lane)
+        overflow = (n >= self.depth) & enabled
+        ok = enabled & ~overflow
+        idx = lane * self.depth + torch.clamp(n, max=self.depth - 1)
+        old = L.get(words, self.cells, idx)
+        L.set_(words, self.cells, torch.where(ok, code + 1, old), idx)
+        L.set_(words, self.lens, torch.where(ok, n + 1, n), lane)
+        return overflow
+
+    def pop(self, words: torch.Tensor, lane: Index, enabled=True) -> None:
+        """Pop the lane head in place (deliver or drop), shifting the lane;
+        a no-op on an empty lane or where ``enabled`` is false."""
+        L = self.layout
+        n = self.length(words, lane)
+        do = (n > 0) & enabled
+        for j in range(self.depth - 1):
+            idx = lane * self.depth + j
+            nxt = L.get(words, self.cells, idx + 1)
+            L.set_(words, self.cells, torch.where(do, nxt, L.get(words, self.cells, idx)), idx)
+        tail = lane * self.depth + (self.depth - 1)
+        L.set_(words, self.cells, torch.where(do, 0, L.get(words, self.cells, tail)), tail)
+        L.set_(words, self.lens, torch.where(do, n - 1, n), lane)
+
+    # --- host codec --------------------------------------------------------
+
+    def host_pack_lane(self, codes: Sequence[int]) -> Tuple[list, int]:
+        """``(cells, length)`` of one lane holding ``codes`` (head first);
+        raises :class:`OverflowError32` past the depth or the code width."""
+        if len(codes) > self.depth:
+            raise OverflowError32(f"{len(codes)} queued messages > depth {self.depth}")
+        for c in codes:
+            if not 0 <= c < (1 << self.code_bits):
+                raise OverflowError32(f"message code {c} exceeds {self.code_bits} bits")
+        return [c + 1 for c in codes] + [0] * (self.depth - len(codes)), len(codes)
 
 
 # --------------------------------------------------------------------------

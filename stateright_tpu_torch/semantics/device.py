@@ -27,8 +27,13 @@ serializer):
   specs here are total and a trailing op constrains nothing;
 - a poisoned history (``h_valid`` cleared) is never serializable.
 
-Sizing: P = (T·(M+1))! / ((M+1)!)^T — 20 at 2×2, 1,680 at 3×2. The
-pattern tables (the thread, the thread's slot, and each thread's count
+Sizing: P = (T·(M+1))! / ((M+1)!)^T — 20 at 2×2, 1,680 at 3×2, 369,600 at
+4×2. Past ``MAX_PATTERNS_EXACT`` a model declares the property in
+``host_verified_properties`` and passes ``pattern_limit``: the pass then
+evaluates a deterministic sample of that many patterns, and its answer is
+one-sided (True proves serializability, False means unknown), which is the
+conservative predicate the engine's host-verified path confirms on the
+host. The pattern tables (the thread, the thread's slot, and each thread's count
 before every step) depend on the pattern alone, so they are built once on
 the host (:func:`interleaving_tables`) and copied to each device once; the
 state-dependent part gathers from them. The reference carries running
@@ -43,7 +48,7 @@ from __future__ import annotations
 import itertools
 import math
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,11 +64,19 @@ WORK = torch.int16
 
 
 @lru_cache(maxsize=None)
-def interleaving_tids(T: int, slots: int) -> np.ndarray:
+def interleaving_tids(T: int, slots: int, limit: Optional[int] = None) -> np.ndarray:
     """The ``tid[P, L]`` thread-schedule table for merges of T sequences of
     ``slots`` slots (L = T*slots): the thread scheduled at each step, every
-    arrangement once, in the reference's order."""
+    arrangement once, in the reference's order. With ``limit`` below the
+    full count, ``limit`` rows drawn as the reference draws them: each an
+    independent uniform shuffle of the multiset ``{t^slots}`` from one fixed
+    seed, so both packages evaluate the same sample, row for row."""
     L = T * slots
+    if limit is not None and limit < pattern_count(T, slots - 1):
+        rng = np.random.default_rng(0xC0FFEE)
+        base = np.repeat(np.arange(T, dtype=np.int32), slots)
+        tid = np.asarray(rng.permuted(np.tile(base, (limit, 1)), axis=1))
+        return np.ascontiguousarray(tid.astype(np.int8))
     pats: list = []
 
     def rec(remaining: tuple, t: int, cur: list) -> None:
@@ -85,11 +98,13 @@ def interleaving_tids(T: int, slots: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def interleaving_tables(T: int, slots: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def interleaving_tables(
+    T: int, slots: int, limit: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """``(tid[P, L], slot[P, L], cnt_before[P, L, T])``: the thread of each
     step, that thread's slot index at the step, and every thread's count of
-    scheduled slots before it."""
-    tid = interleaving_tids(T, slots).astype(np.int32)
+    scheduled slots before it (of the ``limit``-row sample, if given)."""
+    tid = interleaving_tids(T, slots, limit).astype(np.int32)
     P, L = tid.shape
     slot = np.zeros((P, L), dtype=np.int32)
     cnt_before = np.zeros((P, L, T), dtype=np.int32)
@@ -109,12 +124,12 @@ def pattern_count(T: int, max_ops: int) -> int:
 
 
 @lru_cache(maxsize=None)
-def _step_tables(T: int, slots: int, device: str):
+def _step_tables(T: int, slots: int, limit: Optional[int], device: str):
     """Per step l, as ``[L, P]`` tensors on ``device``: the thread ``tl``,
     its slot ``sl``, its completed-op column ``tl * slots + sl`` and, as
     ``[L, T, P]``, each peer's prereq columns and count before the step.
     Made once per device, before any CUDA graph capture reads them."""
-    tid, slot, before = interleaving_tables(T, slots)
+    tid, slot, before = interleaving_tables(T, slots, limit)
     flat = tid * slots + slot  # [P, L]
     q = np.arange(T)
     pre = flat[:, :, None] * T + q  # [P, L, T]
@@ -145,28 +160,36 @@ class DeviceRegister:
         return sem_ok, v
 
 
-def device_serializable(hist, words: torch.Tensor, spec, *, real_time: bool) -> torch.Tensor:
+def device_serializable(hist, words: torch.Tensor, spec, *, real_time: bool,
+                        pattern_limit: Optional[int] = None) -> torch.Tensor:
     """``bool[F]``: whether the packed history in each row of
     ``words[F, W]`` admits a legal serialization of ``spec`` — the batched,
     exact device form of ``BacktrackingTester.serialized_history() is not
     None`` (real_time=True: linearizability; False: sequential
     consistency). ``hist`` is the model's bound :class:`BoundedHistory`.
 
+    ``pattern_limit`` evaluates only a sample of that many patterns
+    (:func:`interleaving_tids`): True still proves serializability, False
+    means unknown — the conservative predicate of a host-verified property.
+
     No host read and no data-dependent shape, so the property pass that
-    calls it can be captured into a CUDA graph. The reference's
-    ``pattern_limit`` (a sampled, one-sided pass for host-verified
-    properties) waits for the host-verified property path."""
+    calls it can be captured into a CUDA graph."""
     T = len(hist.thread_ids)
     M = hist.max_ops
     slots = M + 1
-    if pattern_count(T, M) > MAX_PATTERNS_EXACT:
+    full = pattern_count(T, M)
+    limit = None if pattern_limit is None or pattern_limit >= full else pattern_limit
+    if (full if limit is None else limit) > MAX_PATTERNS_EXACT:
         raise NotImplementedError(
-            f"{pattern_count(T, M)} interleavings ({T} threads x {M}+1 ops) "
-            f"exceeds MAX_PATTERNS_EXACT={MAX_PATTERNS_EXACT}; such models "
-            "run on the host engines"
+            f"{full if limit is None else limit} interleavings ({T} threads x {M}+1 ops"
+            f"{'' if limit is None else f', pattern_limit={limit}'}) exceeds "
+            f"MAX_PATTERNS_EXACT={MAX_PATTERNS_EXACT}; declare the property in "
+            "host_verified_properties instead (conservative device predicate — "
+            f"this function with a pattern_limit <= {MAX_PATTERNS_EXACT} — plus "
+            "exact host confirmation)."
         )
     L_ = hist.layout
-    tl_, sl_, flat_, pre_, flpre_, before_ = _step_tables(T, slots, str(words.device))
+    tl_, sl_, flat_, pre_, flpre_, before_ = _step_tables(T, slots, limit, str(words.device))
     P = tl_.shape[1]
     F = words.shape[0]
 

@@ -73,15 +73,27 @@ def tiny_ref_cand_caps(monkeypatch, tiny_cand_caps):
     monkeypatch.setattr(ref_xla, "default_cand_cap", lambda run_cap, a, backend, env=None: 64)
 
 
-@pytest.mark.parametrize("rm", sorted(EXPECTED_2PC))
-def test_fused_matches_reference(rm):
-    r = ref.PackedTwoPhaseSys(rm).checker().spawn_xla(levels_per_dispatch=32).join()
-    c = port.PackedTwoPhaseSys(rm).checker().spawn_xla(**CPU).join()
+@pytest.mark.parametrize("rm, cand_ladder", [
+    # The port's default (the candidate ladder at 3 rungs) keeps the plain
+    # ids; the one-rung block is the extra case.
+    pytest.param(rm, k, id=str(rm) if k == 3 else f"{rm}-cand_ladder=1")
+    for k in (3, 1) for rm in sorted(EXPECTED_2PC)
+])
+def test_fused_matches_reference(rm, cand_ladder):
+    """The port's block against the reference's planes engine at the same
+    candidate ladder (the reference's CPU default, ``dedup="hash"``, runs
+    one rung)."""
+    r = ref.PackedTwoPhaseSys(rm).checker().spawn_xla(
+        levels_per_dispatch=32, dedup="sorted", cand_ladder=cand_ladder, shrink_exit="on"
+    ).join()
+    kw = {} if cand_ladder == 3 else dict(cand_ladder=cand_ladder)
+    c = port.PackedTwoPhaseSys(rm).checker().spawn_xla(**kw, **CPU).join()
     assert (c.state_count(), c.unique_state_count()) == EXPECTED_2PC[rm]
     _assert_same_search(r, c)
     # Block boundaries, shrink-exits, and each level's bucket and candidate
-    # cap (the reference's ladder decisions do not depend on its dedup).
+    # cap: the rung it ran at.
     assert c.dispatch_log == r.dispatch_log
+    assert c.cand_retries == r.cand_retries
     keys = ("depth", "bucket", "cand_cap")
     assert _levels(c, keys) == _levels(r, keys)
     assert c.metrics()["shrink_exits"] == r.metrics()["shrink_exits"] == (rm > 3)

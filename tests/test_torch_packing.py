@@ -205,3 +205,94 @@ def test_bounded_history_tester_conversions_match(script):
     back = ph.to_tester(pl.unpack(words), lambda: PortTester(port_reg.Register(None)), pc[1], pc[3])
     assert back == pt
     assert (back.serialized_history() is None) == (rt.serialized_history() is None)
+
+
+def _fifo(mod, lanes=3, depth=3, code_bits=3):
+    b = mod.LayoutBuilder().uint("pre", 5)
+    f = mod.FifoLanes(b, "q", lanes=lanes, depth=depth, code_bits=code_bits)
+    b.uint("post", 7)
+    return f.bind(b.finish())
+
+
+def test_fifo_lanes_device_ops_match_the_reference():
+    """Random pushes and pops, each row with its own lane (a tensor index)
+    and enable flag, some pushes past the depth and some pops of empty
+    lanes: the words, heads and overflow flags equal ``jax.vmap`` of the
+    reference's after every step."""
+    rf, pf = _fifo(ref), _fifo(port)
+    assert pf.layout.fields == {k: port.Field(*v) for k, v in rf.layout.fields.items()}
+    rng = np.random.default_rng(23)
+    B = 128
+    start = np.stack([pf.layout.pack(pre=int(rng.integers(32)), post=int(rng.integers(128)))
+                      for _ in range(B)])
+    ref_words, port_words = jnp.asarray(start), from_u32(start, "cpu")
+    for step in range(40):
+        lane = rng.integers(0, 3, B)
+        enabled = rng.random(B) < 0.8
+        lane_t, en_t = torch.from_numpy(lane), torch.from_numpy(enabled)
+        if rng.random() < 0.6:
+            code = rng.integers(0, 8, B)
+            ref_words, ref_ovf = jax.vmap(rf.push)(
+                ref_words, jnp.asarray(lane, jnp.uint32), jnp.asarray(code, jnp.uint32),
+                jnp.asarray(enabled))
+            ovf = pf.push(port_words, lane_t, torch.from_numpy(code), en_t)
+            assert np.array_equal(ovf.numpy(), np.asarray(ref_ovf)), step
+        else:
+            ref_words = jax.vmap(rf.pop)(ref_words, jnp.asarray(lane, jnp.uint32), jnp.asarray(enabled))
+            pf.pop(port_words, lane_t, en_t)
+        assert np.array_equal(to_u32(port_words), np.asarray(ref_words)), step
+        for q in range(3):
+            want_code, want_ne = jax.vmap(lambda w: rf.head(w, q))(ref_words)
+            code, nonempty = pf.head(port_words, q)
+            assert np.array_equal(nonempty.numpy(), np.asarray(want_ne))
+            assert np.array_equal(code.numpy(), np.asarray(want_code).astype(np.int64))
+            assert np.array_equal(pf.length(port_words, q).numpy(),
+                                  np.asarray(jax.vmap(lambda w: rf.length(w, q))(ref_words)))
+    lens = np.stack([pf.length(port_words, q).numpy() for q in range(3)])
+    assert lens.min() == 0 and lens.max() == 3  # empty and full lanes were reached
+
+
+def test_fifo_lanes_host_codec_matches_the_reference():
+    rf, pf = _fifo(ref), _fifo(port)
+    for codes in ([], [0], [7, 1], [3, 3, 3]):
+        assert pf.host_pack_lane(codes) == rf.host_pack_lane(codes)
+    for bad in ([1, 2, 3, 4], [8]):
+        with pytest.raises(port.OverflowError32):
+            pf.host_pack_lane(bad)
+    with pytest.raises(ValueError, match="sentinel"):
+        port.FifoLanes(port.LayoutBuilder(), "q", lanes=1, depth=1, code_bits=32)
+
+
+def test_ordered_network_matches_the_reference():
+    """Sends and deliveries on both packages' ordered networks: the same
+    flows, heads in the same order, every message in the same order, the
+    same equality; and the command-line names."""
+    from stateright_tpu.actor import Id as RefId
+    from stateright_tpu.actor.network import Envelope as RefEnvelope
+    from stateright_tpu.actor.network import Network as RefNetwork
+    from stateright_tpu_torch.actor import Id
+    from stateright_tpu_torch.actor.network import Envelope, Network, OrderedNetwork
+
+    rng = np.random.default_rng(4)
+    net, rnet = Network.new_ordered(), RefNetwork.new_ordered()
+    assert net.is_ordered and not Network.new_unordered_nonduplicating().is_ordered
+    for _ in range(200):
+        if len(net) and rng.random() < 0.4:
+            env = list(net.iter_deliverable())[int(rng.integers(len(list(net.iter_deliverable()))))]
+            net = net.on_deliver(env)
+            rnet = rnet.on_deliver(RefEnvelope(RefId(env.src), RefId(env.dst), env.msg))
+        else:
+            src, dst, msg = (int(x) for x in rng.integers(0, 3, 3))
+            net = net.send(Envelope(Id(src), Id(dst), msg))
+            rnet = rnet.send(RefEnvelope(RefId(src), RefId(dst), msg))
+        assert list(net.iter_deliverable()) == list(rnet.iter_deliverable())
+        assert list(net.iter_all()) == list(rnet.iter_all()) and len(net) == len(rnet)
+        assert net.flows == rnet.flows
+    assert net == OrderedNetwork(dict(net.flows)) and hash(net) == hash(OrderedNetwork(net.flows))
+    with pytest.raises(KeyError, match="flow not found"):
+        Network.new_ordered().on_drop(Envelope(Id(0), Id(1), "x"))
+    assert Network.names() == RefNetwork.names()
+    for name in Network.names():
+        assert type(Network.from_name(name)).__name__ == type(RefNetwork.from_name(name)).__name__
+    with pytest.raises(ValueError, match="unable to parse network name"):
+        Network.from_name("lossy")

@@ -29,7 +29,8 @@ from stateright_tpu_torch.ops.words import from_u32, to_u32
 
 CPU = dict(device="cpu")
 #: The reference engine's dispatch that the port's default reproduces: the
-#: planes engine, one candidate rung, shrink-exit on.
+#: planes engine with shrink-exit on. Its candidate ladder adds no dispatch,
+#: so one rung gives the port's dispatch log at any rung count.
 REF_PLANES = dict(dedup="sorted", cand_ladder=1, shrink_exit="on")
 
 
