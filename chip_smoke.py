@@ -69,9 +69,28 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    of a few hundred rows into a 2^22-row table, and the host-verified
    compaction of flagged frontier rows into ``host_verified_cap`` rows at
    each host-verified run's widest rung (with a past-the-cap extra);
-9. prints the ``{"kernels": [...]}`` line (launches summed over every
-   main-path run: rm=8, Paxos 3c/3s, single-copy-register and the
-   host-verified runs, each also by path) and, last, the device line.
+9. drives the paths of checkpoints, visitors and increment, each with the
+   launch counters set to 0 just before it and read just after:
+   ``checkpoint_rm8`` (rm=8 stopped at its widest level on the warm
+   main-path instance, saved, resumed in a fresh checker and joined: exact
+   counts, valid witnesses, the levels after the save equal to the
+   uninterrupted run's; the device-to-host copy, save, load-and-restore and
+   resumed-run seconds and the file's bytes), ``autockpt_rm8``
+   (``checkpoint_to``/``checkpoint_every=1``/``checkpoint_keep=3`` on the
+   warm instance between two warm runs without: a write at every block
+   boundary, three rotations, the fallback past a newest rotation torn by
+   hand), ``checkpoint_paxos3`` (3c/3s saved at depth 8 and resumed to
+   ``PAXOS3_DEPTH``, and a warm run there auto-checkpointing every block
+   beside one without), ``cpu_card_checkpoint`` (2pc rm=5 saved at depth 6 on
+   the CPU and resumed on the card, and the other way: one payload, exact
+   counts and levels), ``visitor`` (a ``PathRecorder`` through
+   ``spawn_xla()`` on the card equal to the host ``spawn_bfs()``'s paths)
+   and ``increment`` (``PackedIncrementLock(3)`` at (61, 61), then
+   ``PackedIncrement(2)``'s ``fin`` witness as long as the host BFS's);
+10. prints the ``{"kernels": [...]}`` line (launches summed over every
+   main-path run: rm=8, Paxos 3c/3s, single-copy-register, the
+   host-verified runs and the paths of item 9, each also by path) and,
+   last, the device line.
 
 Every line but the nvidia-smi one is a JSON object. Any failed check
 raises, so the script exits non-zero.
@@ -81,8 +100,11 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -90,7 +112,16 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
-from stateright_tpu_torch import graphs
+from stateright_tpu_torch import PathRecorder, graphs
+from stateright_tpu_torch.checkpoint import (
+    PAYLOAD_KEYS,
+    checkpoint_arrays,
+    latest_valid_checkpoint,
+    load_checkpoint,
+    rotations,
+)
+from stateright_tpu_torch.models.increment import Increment, PackedIncrement
+from stateright_tpu_torch.models.increment_lock import PackedIncrementLock
 from stateright_tpu_torch.models.paxos import PackedPaxos
 from stateright_tpu_torch.models.single_copy_register import (
     PackedSingleCopyRegister,
@@ -121,6 +152,8 @@ PAXOS3_DEPTH8 = (3_279, 1_969)
 PAXOS3_DEPTH15 = (405_091, 222_592)
 #: ``bench.py`` ``EXPECTED_MATRIX["single-copy-register 3c/1s packed"]``.
 EXPECTED_SCR3 = (6_778, 4_243)
+#: ``bench.py`` ``EXPECTED_MATRIX["increment_lock 3t packed"]``.
+EXPECTED_INCREMENT_LOCK3 = (61, 61)
 #: The deepest ``target_max_depth`` up to 15 whose 3c/3s run fits one H100
 #: (its last level runs at the 131,072 bucket: a 32.4 GB action grid).
 PAXOS3_DEPTH = 15
@@ -688,10 +721,11 @@ def paxos3_phase():
         "generated": counts[0], "unique": counts[1], "A": model.max_actions,
         "W": model.state_words,
     }
+    ckpt_launches = checkpoint_paxos3_phase(model, warm)
     del model, cold, warm, single, probe, prof
     gc.collect()
     torch.cuda.empty_cache()
-    return shapes, cold_launches, ladder
+    return shapes, cold_launches, ladder, ckpt_launches
 
 
 def paxos3_growth_phase(counts) -> None:
@@ -1274,15 +1308,291 @@ def rung_kernel_phase(c, shapes, hv_shapes, rng) -> dict:
     return {"compact": comp, "merge_insert": merge}
 
 
+# --- checkpoints, the visitor path and increment ----------------------------
+
+#: Where the checkpoint phases write their files (``main`` makes and removes
+#: it, in the temporary directory of the process).
+CKPT_DIR = None
+#: The depth a 2pc rm=5 search is saved at on one device and resumed on the
+#: other.
+RM5_SAVE_DEPTH = 6
+#: The depth a Paxos 3c/3s search is saved at and resumed from.
+PAXOS3_SAVE_DEPTH = 8
+
+
+def launches_now() -> dict:
+    return {"compact": compact.launches, "merge_insert": merge_insert.launches}
+
+
+def run_to_depth(model, depth: int, **kw):
+    """A search of ``model`` stopped with the frontier at ``depth`` intact:
+    ``target_max_depth`` bounds each block's level budget, and the loop stops
+    before the next dispatch's entry check would retire the frontier."""
+    c = model.checker().target_max_depth(depth).spawn_xla(**kw)
+    while c._depth < depth and not c.is_done():
+        c._run_block()
+    require(c._depth == depth and c._frontier_count > 0, f"stopped at depth {c._depth}")
+    return c
+
+
+def tail_levels(c, depth: int) -> list:
+    """``(depth, frontier, generated, unique)`` of every level from ``depth``
+    on."""
+    return [r[:4] for r in levels(c) if r[0] >= depth]
+
+
+def check_paths(c) -> None:
+    c.assert_properties()
+    for name, path in c.discoveries().items():
+        c.assert_discovery(name, path.into_actions())
+
+
+def checkpoint_resume(model, depth: int, whole, what: str, final_depth=None) -> dict:
+    """``model`` searched on the card to ``depth`` and saved; the file
+    resumed in a fresh checker on the card and joined (to ``final_depth``
+    if given): the resumed run's counts, levels and discoveries equal the
+    uninterrupted run ``whole``'s. Times the device-to-host copy of the
+    payload, the save, the load-and-restore and the resumed run; launches
+    count from the first level to the resumed run's end."""
+    path = os.path.join(CKPT_DIR, f"{what}.npz")
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    partial = run_to_depth(model, depth)
+    torch.cuda.synchronize()
+    partial_wall = time.perf_counter() - t0
+    require(tail_levels(whole, 0)[: depth - 1] == [r[:4] for r in levels(partial)],
+            f"{what}: levels before the save")
+    t0 = time.perf_counter()
+    arrays = checkpoint_arrays(partial)
+    d2h_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    partial.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    builder = model.checker()
+    if final_depth is not None:
+        builder = builder.target_max_depth(final_depth)
+    resumed = builder.spawn_xla(checkpoint=path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require((resumed.state_count(), resumed.unique_state_count())
+            == (partial.state_count(), partial.unique_state_count()), f"{what}: restored counts")
+    t0 = time.perf_counter()
+    resumed.join()
+    torch.cuda.synchronize()
+    resumed_wall = time.perf_counter() - t0
+    launches = launches_now()
+    require(all(n > 0 for n in launches.values()), f"{what}: kernel launches {launches}")
+    counts = (resumed.state_count(), resumed.unique_state_count(), resumed.max_depth())
+    require(counts == (whole.state_count(), whole.unique_state_count(), whole.max_depth()),
+            f"{what}: resumed counts {counts}")
+    require(tail_levels(resumed, depth) == tail_levels(whole, depth), f"{what}: levels after the resume")
+    check_paths(resumed)
+    return {
+        "save_depth": depth, "generated": counts[0], "unique": counts[1], "max_depth": counts[2],
+        "saved_rows": len(arrays["key_hi"]), "saved_frontier": len(arrays["frontier"]),
+        "payload_bytes": sum(a.nbytes for a in arrays.values()),
+        "file_bytes": os.path.getsize(path), "partial_wall_s": partial_wall,
+        "d2h_s": d2h_s, "save_s": save_s, "restore_s": restore_s,
+        "resumed_wall_s": resumed_wall,
+        "table_capacity": {"writer": partial.metrics()["table_capacity"],
+                           "resumed": resumed.metrics()["table_capacity"]},
+        "resumed_graph_captures": resumed.metrics()["graph_captures"],
+        "levels_after_resume_equal": True, "launches": launches,
+    }
+
+
+def checkpoint_rm8_phase(model, whole) -> dict:
+    """2pc rm=8 saved at its widest level through the fused CUDA-graph path
+    of the warm main-path instance, and resumed on the card."""
+    depth = max(whole.level_log, key=lambda r: r["frontier"])["depth"]
+    line = checkpoint_resume(model, depth, whole, "checkpoint_rm8")
+    require((line["generated"], line["unique"]) == EXPECTED_2PC[8], "checkpoint_rm8 counts")
+    emit({"phase": "checkpoint_rm8", **line})
+    return line["launches"]
+
+
+def checkpoint_paxos3_phase(model, whole) -> dict:
+    """Paxos 3c/3s saved at depth 8 on the warm instance of ``paxos3_phase``
+    and resumed to ``PAXOS3_DEPTH``; then a warm run to that depth
+    auto-checkpointing every block beside two without. Returns the
+    launches of both paths."""
+    line = checkpoint_resume(model, PAXOS3_SAVE_DEPTH, whole, "checkpoint_paxos3",
+                             final_depth=PAXOS3_DEPTH)
+    require((line["generated"], line["unique"]) == PAXOS3_DEPTH15, "checkpoint_paxos3 counts")
+    auto, auto_launches, _, _ = auto_checkpointed(model, "autockpt_paxos3", PAXOS3_DEPTH15,
+                                                  depth=PAXOS3_DEPTH)
+    emit({"phase": "checkpoint_paxos3", **line, "autockpt": auto})
+    return {"checkpoint_paxos3": line["launches"], "autockpt_paxos3": auto_launches}
+
+
+def auto_checkpointed(model, what: str, expected, depth=None):
+    """A warm run of ``model`` with ``checkpoint_to``, ``checkpoint_every=1``
+    and ``checkpoint_keep=3``, between two warm runs without: exact counts,
+    one write at every block boundary that committed a level, and the
+    rotations kept. Returns ``(line, launches, checker, path)``; the line
+    has the walls of all three runs."""
+    path = os.path.join(CKPT_DIR, f"{what}.npz")
+    _, before, _ = drive(model, depth=depth)
+    c, wall, launches = drive(model, depth=depth, checkpoint_to=path, checkpoint_every=1,
+                              checkpoint_keep=3)
+    _, after, _ = drive(model, depth=depth)
+    require((c.state_count(), c.unique_state_count()) == expected, f"{what} counts")
+    require(all(n > 0 for n in launches.values()), f"{what}: kernel launches {launches}")
+    written = c.metrics()["checkpoints_written"]
+    blocks = sum(1 for _, committed in c.dispatch_log if committed)
+    require(written == blocks, f"{what}: {written} writes for {blocks} blocks")
+    rots = rotations(path)
+    require(len(rots) == min(written, 3), f"{what} rotations {rots}")
+    require(load_checkpoint(path)["meta"]["depth"] == c.metrics()["last_checkpoint_level"],
+            f"{what}: the newest rotation is the last write")
+    line = {"warm_wall_s": wall, "warm_wall_without_s": [before, after],
+            "checkpoints_written": written, "blocks": blocks, "dispatch_log": c.dispatch_log,
+            "rotation_bytes": [os.path.getsize(r) for r in rots], "launches": launches}
+    return line, launches, c, path
+
+
+def autockpt_rm8_phase(model) -> dict:
+    """Warm rm=8 with ``checkpoint_to``, ``checkpoint_every=1`` and
+    ``checkpoint_keep=3``, between two warm runs without
+    (:func:`auto_checkpointed`); the whole visited set's copy to the host
+    and save timed; and ``latest_valid_checkpoint`` past a newest rotation
+    torn by hand, whose fallback restores (timed) and resumes to the exact
+    counts."""
+    line, launches, c, path = auto_checkpointed(model, "autockpt_rm8", EXPECTED_2PC[8])
+    # The whole visited set (1,745,408 rows) copied to the host and saved.
+    t0 = time.perf_counter()
+    arrays = checkpoint_arrays(c)
+    full_d2h = time.perf_counter() - t0
+    full = os.path.join(CKPT_DIR, "rm8_full.npz")
+    t0 = time.perf_counter()
+    c.save_checkpoint(full)
+    full_save = time.perf_counter() - t0
+    with open(path, "r+b") as fh:
+        fh.truncate(os.path.getsize(path) // 2)
+    fallback = latest_valid_checkpoint(path)
+    require(fallback == f"{path}.1", f"autockpt_rm8: fallback {fallback}")
+    t0 = time.perf_counter()
+    back = model.checker().spawn_xla(checkpoint=fallback)
+    torch.cuda.synchronize()
+    fallback_restore = time.perf_counter() - t0
+    back.join()
+    require((back.state_count(), back.unique_state_count()) == EXPECTED_2PC[8],
+            "autockpt_rm8: the fallback resumes to the exact counts")
+    emit({"phase": "autockpt_rm8", **line, "fallback": os.path.basename(fallback),
+          "fallback_rows": load_checkpoint(fallback)["key_hi"].size,
+          "fallback_restore_s": fallback_restore,
+          "full": {"rows": arrays["key_hi"].size,
+                   "payload_bytes": sum(a.nbytes for a in arrays.values()),
+                   "d2h_s": full_d2h, "save_s": full_save, "file_bytes": os.path.getsize(full)}})
+    return launches
+
+
+def cpu_card_checkpoint_phase() -> dict:
+    """2pc rm=5 saved at depth 6 on the CPU and resumed on the card, and
+    saved at depth 6 on the card and resumed on the CPU: both files hold the
+    same payload, and both resumed runs end at the counts and levels of an
+    uninterrupted run on the card."""
+    whole = PackedTwoPhaseSys(5).checker().spawn_xla().join()
+    on_cpu, on_card = (os.path.join(CKPT_DIR, f"rm5_{d}.npz") for d in ("cpu", "card"))
+    run_to_depth(PackedTwoPhaseSys(5), RM5_SAVE_DEPTH, device="cpu").save_checkpoint(on_cpu)
+    model = PackedTwoPhaseSys(5)
+    torch.cuda.synchronize()
+    zero_launches()
+    run_to_depth(model, RM5_SAVE_DEPTH).save_checkpoint(on_card)
+    to_card = model.checker().spawn_xla(checkpoint=on_cpu).join()
+    torch.cuda.synchronize()
+    launches = launches_now()
+    to_cpu = PackedTwoPhaseSys(5).checker().spawn_xla(device="cpu", checkpoint=on_card).join()
+    a, b = load_checkpoint(on_cpu), load_checkpoint(on_card)
+    require(all(np.array_equal(a[k], b[k]) for k in PAYLOAD_KEYS)
+            and a["meta"]["payload_sha256"] == b["meta"]["payload_sha256"],
+            "rm=5: the CPU's and the card's checkpoints differ")
+    for c, what in ((to_card, "CPU -> card"), (to_cpu, "card -> CPU")):
+        require((c.state_count(), c.unique_state_count()) == EXPECTED_2PC[5], f"rm=5 {what} counts")
+        require(tail_levels(c, RM5_SAVE_DEPTH) == tail_levels(whole, RM5_SAVE_DEPTH),
+                f"rm=5 {what} levels")
+    require(all(n > 0 for n in launches.values()), f"cpu_card_checkpoint: kernel launches {launches}")
+    emit({"phase": "cpu_card_checkpoint", "rm": 5, "save_depth": RM5_SAVE_DEPTH,
+          "payload_sha256_equal": True, "generated": EXPECTED_2PC[5][0],
+          "unique": EXPECTED_2PC[5][1], "launches": launches})
+    return launches
+
+
+def visitor_phase() -> dict:
+    """``PackedTwoPhaseSys(4)`` with a ``PathRecorder`` through
+    ``spawn_xla()`` on the card (one level per dispatch): the recorded paths
+    equal the port's host ``spawn_bfs()`` visitor's, as a set of paths."""
+    recorder, recorded = PathRecorder.new_with_accessor()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    c = PackedTwoPhaseSys(4).checker().visitor(recorder).spawn_xla().join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_now()
+    host_recorder, host_recorded = PathRecorder.new_with_accessor()
+    PackedTwoPhaseSys(4).checker().visitor(host_recorder).spawn_bfs().join()
+
+    def paths(ps):
+        return {(tuple(p.into_states()), tuple(p.into_actions())) for p in ps}
+
+    got = paths(recorded())
+    require(c.metrics()["levels_per_dispatch"] == 1, "a visitor forces one level per dispatch")
+    require(len(got) == EXPECTED_2PC[4][1] and got == paths(host_recorded()),
+            "visitor paths, card vs host BFS")
+    require(all(n > 0 for n in launches.values()), f"visitor: kernel launches {launches}")
+    emit({"phase": "visitor", "rm": 4, "paths": len(got), "equal_host_bfs": True, "wall_s": wall,
+          "dispatches": len(c.dispatch_log), "launches": launches})
+    return launches
+
+
+def increment_phase() -> dict:
+    """``PackedIncrementLock(3)`` on the card to (61, 61), then
+    ``PackedIncrement(2)`` to its ``fin`` counterexample, whose witness is as
+    long as the port's host BFS's."""
+    lock, lock_wall, lock_launches = drive(PackedIncrementLock(3))
+    require((lock.state_count(), lock.unique_state_count()) == EXPECTED_INCREMENT_LOCK3,
+            f"increment-lock 3t counts {(lock.state_count(), lock.unique_state_count())}")
+    check_paths(lock)
+    race, race_wall, race_launches = drive(PackedIncrement(2))
+    witness = race.discoveries()["fin"]
+    host = Increment(2).checker().spawn_bfs().join().discoveries()["fin"]
+    require(len(witness) == len(host), f"fin witness {len(witness)} vs host BFS {len(host)}")
+    race.assert_discovery("fin", witness.into_actions())
+    for name, launches in (("increment_lock3", lock_launches), ("increment2", race_launches)):
+        require(all(n > 0 for n in launches.values()), f"{name}: kernel launches {launches}")
+    emit({"phase": "increment", "increment_lock3": {
+        "generated": lock.state_count(), "unique": lock.unique_state_count(), "wall_s": lock_wall,
+        "state_words": lock.model().state_words, "max_actions": lock.model().max_actions,
+        "launches": lock_launches,
+    }, "increment2": {"fin_witness": len(witness), "host_bfs_witness": len(host),
+                      "generated": race.state_count(), "wall_s": race_wall, "launches": race_launches}})
+    return {"increment_lock3": lock_launches, "increment2": race_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    global PROGRAM_USE
+    global PROGRAM_USE, CKPT_DIR
     PROGRAM_USE = ProgramUse()
+    CKPT_DIR = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def run_phases() -> int:
     device_phase()
     small_phase()
     model, checker, launches, ladder = main_path_phase()
+    new_paths = {
+        "checkpoint_rm8": checkpoint_rm8_phase(model, checker),
+        "autockpt_rm8": autockpt_rm8_phase(model),
+    }
     repeat_and_profile_phase(model)
     host_split_phase()
     lookahead_sweep_phase(model)
@@ -1290,10 +1600,14 @@ def main() -> int:
     rm8_single_phase()
     graph_vs_eager_phase()
     paxos_small_phase()
-    shapes, paxos_launches, paxos_ladder = paxos3_phase()
+    shapes, paxos_launches, paxos_ladder, paxos_ckpt = paxos3_phase()
+    new_paths.update(paxos_ckpt)
     paxos3_one_rung_phase(paxos_ladder)
     paxos3_growth_phase((shapes["generated"], shapes["unique"]))
     scr_launches, hv_shapes = scr_phase()
+    new_paths["cpu_card_checkpoint"] = cpu_card_checkpoint_phase()
+    new_paths["visitor"] = visitor_phase()
+    new_paths.update(increment_phase())
     rng = np.random.default_rng(2024)
     b1 = compact_phase(checker, rng)
     m_main = max(r["cand_cap"] for r in checker.level_log)
@@ -1306,7 +1620,8 @@ def main() -> int:
         ("merge_insert", "merge.cu", "stateright_tpu/ops/pallas_merge.py:347", b2),
     ):
         by_path = {"rm8": launches[name], "paxos3": paxos_launches[name],
-                   **{f"scr_{k}": v[name] for k, v in scr_launches.items()}}
+                   **{f"scr_{k}": v[name] for k, v in scr_launches.items()},
+                   **{k: v[name] for k, v in new_paths.items()}}
         new_shapes = rk[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"stateright_tpu_torch/csrc/{source}",

@@ -1,11 +1,11 @@
-"""Carry the reference package's logical search state into the port.
+"""Carry a checkpoint's logical search state into the port's engine.
 
-No module of ``stateright_tpu`` has this job: its engines restore their own
-checkpoints (``stateright_tpu/xla.py`` ``_restore``, from the arrays that
-``stateright_tpu/checkpoint.py`` writes). Here the same logical state — the
-visited set as compacted ``(fingerprint, parent)`` 32-bit lanes, the
-frontier rows with their eventually-bits, and the counters of the meta —
-becomes the port's ``SortedSet``, frontier tensors and counters.
+The part of ``stateright_tpu/xla.py`` ``_restore`` that builds engine state
+from the arrays a checkpoint holds (``checkpoint.load_checkpoint``), written
+by either package's engine. The logical state — the visited set as
+compacted ``(fingerprint, parent)`` 32-bit lanes, the frontier rows with
+their eventually-bits, and the counters of the meta — becomes the port's
+``SortedSet``, frontier tensors and counters.
 """
 
 from __future__ import annotations
@@ -18,11 +18,11 @@ from .ops import sortedset
 from .ops.words import from_u32
 
 
-def state_from_reference(
+def state_from_checkpoint(
     arrays: Dict[str, np.ndarray], meta: Dict[str, Any], device, table_capacity: int
 ) -> Dict[str, Any]:
     """The port's search state from a checkpoint's ``arrays`` and ``meta``
-    (``checkpoint.load_reference_checkpoint``). The visited set gets the
+    (``checkpoint.load_checkpoint``). The visited set gets the
     smallest power-of-two capacity from ``table_capacity`` up with room for
     twice its rows, as the reference engine sizes a restored table."""
     n = len(arrays["key_hi"])

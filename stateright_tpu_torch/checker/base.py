@@ -3,8 +3,8 @@
 The port's own copy of ``stateright_tpu/checker/base.py`` (stateright's
 ``Checker`` trait, ``src/checker.rs:254-538``).  Checkers run lazily
 in-process: ``spawn_*`` builds the checker with initial counters, ``join()``
-(or ``report()``) drives it to completion.  The GPU engine runs one BFS
-level per ``_run_block`` call.
+(or ``report()``) drives it to completion.  The host engines process a
+block of states per ``_run_block`` call, the GPU engine one dispatch.
 """
 
 from __future__ import annotations
@@ -112,6 +112,11 @@ class Checker:
         }
         reporter.report_discoveries(discoveries)
         return self
+
+    def join_and_report(self, reporter: Reporter) -> "Checker":
+        """Runs to completion while reporting (checker.rs's
+        ``join_and_report``): the same as :meth:`report`."""
+        return self.report(reporter)
 
     def _report_data(self, start: float, done: bool) -> ReportData:
         return ReportData(

@@ -46,6 +46,24 @@ class TwoPhaseState:
     tm_prepared: Tuple[bool, ...]
     msgs: frozenset
 
+    def representative(self) -> "TwoPhaseState":
+        """Canonical member of this state's symmetry class, for the host
+        engines' ``symmetry()``: RMs sorted by rm_state (stable),
+        tm_prepared permuted along, message RM ids rewritten
+        (2pc.rs:205-225)."""
+        order = sorted(range(len(self.rm_state)), key=lambda i: self.rm_state[i])
+        inverse = {old: new for new, old in enumerate(order)}
+        msgs = frozenset(
+            ("Prepared", inverse[m[1]]) if isinstance(m, tuple) else m
+            for m in self.msgs
+        )
+        return TwoPhaseState(
+            rm_state=tuple(self.rm_state[i] for i in order),
+            tm_state=self.tm_state,
+            tm_prepared=tuple(self.tm_prepared[i] for i in order),
+            msgs=msgs,
+        )
+
 
 class TwoPhaseSys(Model):
     """Object-level two-phase commit model (2pc.rs:59-149)."""

@@ -1,6 +1,8 @@
 """A search stopped and saved by the reference package's XlaChecker resumes
 in the port (stateright_tpu_torch/checkpoint.py, carry.py) to the exact
-counts of an uninterrupted run."""
+counts of an uninterrupted run; a file of another model is a ``ValueError``
+and a tampered payload the typed ``CheckpointCorrupt``, as in the
+reference."""
 
 import json
 
@@ -8,6 +10,7 @@ import numpy as np
 import pytest
 
 from stateright_tpu.models import two_phase_commit as ref
+from stateright_tpu_torch.checkpoint import CheckpointCorrupt
 from stateright_tpu_torch.models import two_phase_commit as port
 
 
@@ -53,7 +56,7 @@ def test_rejects_another_model_and_a_tampered_payload(tmp_path):
     arrays["frontier_ebits"] = arrays["frontier_ebits"] + 1
     bad = str(tmp_path / "bad.npz")
     np.savez(bad, **arrays)
-    with pytest.raises(ValueError, match="digest"):
+    with pytest.raises(CheckpointCorrupt, match="digest"):
         port.PackedTwoPhaseSys(4).checker().spawn_xla(checkpoint=bad, device="cpu")
     meta = json.loads(bytes(arrays["meta"]).decode())
     assert meta["format_version"] == 3

@@ -161,8 +161,8 @@ def test_shrink_exit_on_and_off():
     on = port.PackedTwoPhaseSys(4).checker().spawn_xla(**CPU).join()
     off = port.PackedTwoPhaseSys(4).checker().spawn_xla(shrink_exit="off", **CPU).join()
     _assert_same_search(on, off)
-    assert on.metrics()["shrink_exit"] == "on" and on.metrics()["shrink_exits"] > 0
-    assert off.metrics()["shrink_exit"] == "off" and off.metrics()["shrink_exits"] == 0
+    assert on.metrics()["shrink_exit"] is True and on.metrics()["shrink_exits"] > 0
+    assert off.metrics()["shrink_exit"] is False and off.metrics()["shrink_exits"] == 0
     assert on.dispatch_log == [(64, 2), (32768, 10), (64, 2)]
     assert off.dispatch_log == [(64, 2), (32768, 12)]
     with pytest.raises(ValueError, match="shrink_exit"):
@@ -263,10 +263,18 @@ def test_capacity_hints_size_the_next_checker(monkeypatch, tiny_cand_caps):
 def test_fused_metrics():
     c = port.PackedTwoPhaseSys(3).checker().spawn_xla(**CPU).join()
     m = c.metrics()
-    assert m["levels_per_dispatch"] == 32 and m["shrink_exit"] == "on"
+    assert m["levels_per_dispatch"] == 32 and m["shrink_exit"] is True
     # The CPU runs the gated level eagerly: no graphs, no dead replays.
     assert (m["graph_captures"], m["dead_replays"], m["shrink_exits"]) == (0, 0, 0)
     assert (m["dispatches"], m["levels_committed"]) == (1, 11)
+
+
+def test_shrink_exit_metric_is_the_references_bool():
+    """``metrics()["shrink_exit"]`` has the reference's type and value."""
+    want = ref.PackedTwoPhaseSys(3).checker().spawn_xla(dedup="sorted").join().metrics()
+    got = port.PackedTwoPhaseSys(3).checker().spawn_xla(**CPU).join().metrics()
+    assert type(got["shrink_exit"]) is type(want["shrink_exit"]) is bool
+    assert got["shrink_exit"] == want["shrink_exit"]
 
 
 def test_graph_replays_count_their_kernel_launches(monkeypatch):

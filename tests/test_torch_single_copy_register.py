@@ -120,6 +120,9 @@ def test_two_servers_find_the_linearizability_counterexample():
     c.assert_discovery("linearizable", witness.into_actions())
     oracle = ref.single_copy_register_model(2, 2).checker().spawn_bfs().join()
     assert len(witness) == len(oracle.discoveries()["linearizable"])
+    # The port's own host BFS gives the same shortest witness.
+    own = port.single_copy_register_model(2, 2).checker().spawn_bfs().join()
+    assert len(witness) == len(own.discoveries()["linearizable"])
 
 
 def test_three_clients_expected_matrix():
@@ -138,6 +141,10 @@ def test_ordered_variant_equals_the_reference():
     c.assert_properties()
     oracle.assert_properties()
     assert len(c.discoveries()["value chosen"]) == len(oracle.discoveries()["value chosen"])
+    # The port's own host BFS gives the same counts and witness length.
+    own = port.single_copy_register_model(2, 1, port.Network.new_ordered()).checker().spawn_bfs().join()
+    assert (own.state_count(), own.unique_state_count()) == (121, 93)
+    assert len(own.discoveries()["value chosen"]) == len(oracle.discoveries()["value chosen"])
 
 
 def test_exactness_gate():
