@@ -87,10 +87,25 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    ``spawn_xla()`` on the card equal to the host ``spawn_bfs()``'s paths)
    and ``increment`` (``PackedIncrementLock(3)`` at (61, 61), then
    ``PackedIncrement(2)``'s ``fin`` witness as long as the host BFS's);
-10. prints the ``{"kernels": [...]}`` line (launches summed over every
+10. drives the ABD linearizable register (``abd``): ``PackedAbd`` and
+   ``PackedAbdOrdered`` at 2c/2s (875 / 544 / 25 and 813 / 564 / 25) and
+   at 3c/2s (68,115 / 35,009 / 37 and 63,053 / 36,213 / 37; W = 39 and
+   31, A = 417 and 14, 1,680 interleavings per linearizability check),
+   each 3c/2s run cold and then warm on one model instance (the warm run
+   capturing nothing) with every discovery re-executed, each equal to the
+   CPU level by level at the CPU tests' depth cut, and the unordered one
+   once more one level per dispatch to its widest frontier (peak memory by
+   bucket, that level by stage); then ``models``: ping-pong lossy max 5
+   (4,094 states, equal to the CPU), the sliding puzzle's doc board (its
+   4-slide discovery), timers 3 to depth 5 (equal to the CPU) and a
+   ``PackedAbd(2, 2)`` checkpoint written on the CPU and resumed on the
+   card, and the other way; then holds both kernels against their plain
+   versions at the ABD 3c/2s shapes (``abd3_kernels``, as item 5 at the
+   Paxos shapes), exactly, and times them;
+11. prints the ``{"kernels": [...]}`` line (launches summed over every
    main-path run: rm=8, Paxos 3c/3s, single-copy-register, the
-   host-verified runs and the paths of item 9, each also by path) and,
-   last, the device line.
+   host-verified runs and the paths of items 9 and 10, each also by path)
+   and, last, the device line.
 
 Every line but the nvidia-smi one is a JSON object. Any failed check
 raises, so the script exits non-zero.
@@ -120,9 +135,14 @@ from stateright_tpu_torch.checkpoint import (
     load_checkpoint,
     rotations,
 )
+from stateright_tpu_torch.actor.actor_test_util import PingPongCfg
+from stateright_tpu_torch.actor.packed import PackedPingPong
 from stateright_tpu_torch.models.increment import Increment, PackedIncrement
 from stateright_tpu_torch.models.increment_lock import PackedIncrementLock
+from stateright_tpu_torch.models.linearizable_register import PackedAbd, PackedAbdOrdered
 from stateright_tpu_torch.models.paxos import PackedPaxos
+from stateright_tpu_torch.models.puzzle import PackedPuzzle
+from stateright_tpu_torch.models.timers import PackedTimers
 from stateright_tpu_torch.models.single_copy_register import (
     PackedSingleCopyRegister,
     PackedSingleCopyRegisterOrdered,
@@ -154,6 +174,20 @@ PAXOS3_DEPTH15 = (405_091, 222_592)
 EXPECTED_SCR3 = (6_778, 4_243)
 #: ``bench.py`` ``EXPECTED_MATRIX["increment_lock 3t packed"]``.
 EXPECTED_INCREMENT_LOCK3 = (61, 61)
+#: ABD, ``(generated, unique, max_depth)``: 2 clients / 2 servers
+#: (``EXPECTED_MATRIX``, linearizable-register.rs:289,316) and 3 clients,
+#: on the unordered and the ordered network (``tests/test_packed_abd.py``,
+#: ``tests/test_packed_abd_ordered.py``).
+EXPECTED_ABD = {
+    ("unordered", 2): (875, 544, 25),
+    ("ordered", 2): (813, 564, 25),
+    ("unordered", 3): (68_115, 35_009, 37),
+    ("ordered", 3): (63_053, 36_213, 37),
+}
+#: The depth cuts of the CPU tests of ABD 3c/2s (``tests/test_torch_abd*.py``).
+ABD3_CPU_DEPTH = {"unordered": 14, "ordered": 16}
+#: ``PackedPingPong(PingPongCfg(False, 5), lossy=True)``: model.rs:680.
+PING_PONG_LOSSY5 = 4_094
 #: The deepest ``target_max_depth`` up to 15 whose 3c/3s run fits one H100
 #: (its last level runs at the 131,072 bucket: a 32.4 GB action grid).
 PAXOS3_DEPTH = 15
@@ -1009,13 +1043,14 @@ def merge_phase(rng, c_main: int, m_main: int) -> dict:
     return {"max_abs_err": max(v["max_abs_err"] for v in out.values()), **timing}
 
 
-def paxos_kernel_phase(shapes, rng) -> dict:
+def model_kernel_phase(shapes, rng, tag: str = "paxos3") -> dict:
     """Both kernels against their plain versions, exactly, at the shapes of
-    the Paxos 3c/3s run (20 launches each), and timed there: the grid
-    compaction (P = W + 3 = 49 lanes) at its widest bucket's densest level,
-    the frontier compaction (P = W + 1 = 47) at the level with the most new
-    states, and ``merge_insert`` at its table capacity and widest candidate
-    buffer. The inputs are made on the card from a seed."""
+    a wide model's run (``shapes``; 20 launches each), and timed there: the
+    grid compaction (P = W + 3 lanes: 49 for Paxos 3c/3s, 42 for ABD 3c/2s)
+    at its widest bucket's densest level, the frontier compaction (P = W +
+    1) at the level with the most new states, and ``merge_insert`` at its
+    table capacity and widest candidate buffer. The inputs are made on the
+    card from a seed. ``tag`` names the phase and its cases."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     A, W, lv = shapes["A"], shapes["W"], shapes["levels"]
     f = max(r["bucket"] for r in lv)
@@ -1027,7 +1062,7 @@ def paxos_kernel_phase(shapes, rng) -> dict:
     mask = (torch.rand((f, A), device="cuda", generator=gen) < density) & live
     lanes = [grid[:, :, w] for w in range(W)] + [p[:, None].expand(f, A) for p in per_state]
     cap = top["cand_cap"]
-    out = {"grid": check_compact("paxos3_grid", mask, lanes, cap, reps=20)}
+    out = {"grid": check_compact(f"{tag}_grid", mask, lanes, cap, reps=20)}
     n = out["grid"]["n_valid"]
     flat = mask.reshape(-1)
     grid_timing = kernel_timing(
@@ -1043,12 +1078,12 @@ def paxos_kernel_phase(shapes, rng) -> dict:
     flags = np.zeros(wide["cand_cap"], bool)
     flags[rng.choice(wide["generated"], wide["unique"], replace=False)] = True
     fmask, flanes = torch.from_numpy(flags).cuda(), list(rows)
-    out["frontier"] = check_compact("paxos3_frontier", fmask, flanes, wide["bucket"], reps=20)
+    out["frontier"] = check_compact(f"{tag}_frontier", fmask, flanes, wide["bucket"], reps=20)
     frontier_timing = time_compact(fmask, flanes, wide["bucket"], out["frontier"]["n_valid"], W + 1, 0)
     del rows, fmask, flanes
     c_tab, m_cand = shapes["table_capacity"], max(r["cand_cap"] for r in lv)
     table, batch = _merge_case(rng, c_tab, shapes["unique"], m_cand)
-    out["merge"] = check_merge("paxos3_table", table, batch, reps=20)
+    out["merge"] = check_merge(f"{tag}_table", table, batch, reps=20)
     nk = out["merge"]["n_keep"]
     merge_timing = kernel_timing(
         lambda: merge_insert(table, batch), lambda: merge_insert_plain(table, batch), None,
@@ -1057,7 +1092,7 @@ def paxos_kernel_phase(shapes, rng) -> dict:
     del table, batch
     gc.collect()
     torch.cuda.empty_cache()
-    emit({"phase": "paxos3_kernels", "cases": out,
+    emit({"phase": f"{tag}_kernels", "cases": out,
           "grid": {"F": f, "A": A, "P": W + 3, "cap": cap, **grid_timing},
           "frontier": {"M": wide["cand_cap"], "P": W + 1, "cap": wide["bucket"], **frontier_timing},
           "merge_insert": {"C": c_tab, "m": m_cand, **merge_timing}})
@@ -1572,6 +1607,172 @@ def increment_phase() -> dict:
     return {"increment_lock3": lock_launches, "increment2": race_launches}
 
 
+# --- ABD and the remaining models ----------------------------------------------
+
+ABD = {"unordered": PackedAbd, "ordered": PackedAbdOrdered}
+
+
+def abd_phase():
+    """The ABD linearizable register through ``spawn_xla()``: 2c/2s on both
+    networks and 3c/2s (W = 39 and 31, A = 417 and 14, 1,680 interleavings
+    per linearizability check) on both, each 3c/2s run cold and then warm
+    on one model instance (the warm run capturing nothing), every count
+    exact and every discovery re-executed on the host; each 3c/2s space
+    also equal to the CPU's level by level at the CPU tests' depth cut;
+    the unordered 3c/2s run once more one level per dispatch to the widest
+    frontier (depth 31), with the peak memory of every bucket and that
+    level split by stage. Returns the launches of each run and the shapes
+    of the unordered 3c/2s run."""
+    out, launches = {}, {}
+    for net in ("unordered", "ordered"):
+        c, wall, launches[f"abd2_{net}"] = drive(ABD[net](2, 2))
+        counts = (c.state_count(), c.unique_state_count(), c.max_depth())
+        require(counts == EXPECTED_ABD[(net, 2)], f"abd 2c/2s {net} counts {counts}")
+        check_paths(c)
+        out[f"2c2s_{net}"] = {"generated": counts[0], "unique": counts[1], "max_depth": counts[2],
+                              "cold_wall_s": wall, "launches": launches[f"abd2_{net}"],
+                              "graph_captures": c.metrics()["graph_captures"]}
+    shapes = None
+    for net in ("unordered", "ordered"):
+        model = ABD[net](3, 2)
+        torch.cuda.reset_peak_memory_stats()
+        PROGRAM_USE.segment = f"abd3_{net}_cold"
+        cold, cold_wall, cold_launches = drive(model)
+        cold_peak = torch.cuda.max_memory_allocated() / 2**30
+        PROGRAM_USE.segment = f"abd3_{net}_warm"
+        warm, warm_wall, warm_launches = drive(model)
+        PROGRAM_USE.segment = "other"
+        launches[f"abd3_{net}"] = cold_launches
+        counts = (cold.state_count(), cold.unique_state_count(), cold.max_depth())
+        require(counts == EXPECTED_ABD[(net, 3)], f"abd 3c/2s {net} counts {counts}")
+        require((warm.state_count(), warm.unique_state_count(), warm.max_depth()) == counts,
+                f"abd 3c/2s {net} warm vs cold counts")
+        require([r[:4] for r in levels(warm)] == [r[:4] for r in levels(cold)],
+                f"abd 3c/2s {net} warm vs cold per-level counts")
+        require(cold.metrics()["graph_captures"] > 0, f"abd 3c/2s {net}: the cold run captured nothing")
+        require(warm.metrics()["graph_captures"] == 0, f"abd 3c/2s {net}: the warm run captured graphs")
+        require(all(n > 0 for n in cold_launches.values()), f"abd 3c/2s {net} kernel launches {cold_launches}")
+        t1 = time.perf_counter()
+        check_paths(cold)
+        check_paths(warm)
+        paths_s = time.perf_counter() - t1
+        depth = ABD3_CPU_DEPTH[net]
+        card, _, _ = drive(ABD[net](3, 2), depth=depth)
+        t0 = time.perf_counter()
+        cpu = ABD[net](3, 2).checker().target_max_depth(depth).spawn_xla(device="cpu").join()
+        cpu_wall = time.perf_counter() - t0
+        same_search(card, cpu, f"abd 3c/2s {net} to depth {depth}")
+        m = cold.metrics()
+        widest = max(cold.level_log, key=lambda r: r["frontier"])
+        line = {
+            "state_words": model.state_words, "max_actions": model.max_actions,
+            "generated": counts[0], "unique": counts[1], "max_depth": counts[2],
+            "cold_wall_s": cold_wall, "warm_wall_s": warm_wall,
+            "states_per_s": counts[0] / warm_wall, "cold_states_per_s": counts[0] / cold_wall,
+            "level_log": [list(r[:6]) for r in levels(cold)], "rungs": rungs(cold),
+            "cand_retries": m["cand_retries"], "dispatch_log": cold.dispatch_log,
+            "graph_captures": m["graph_captures"], "capture_s": m["graph_capture_s"],
+            "program_use": PROGRAM_USE.summary(f"abd3_{net}_cold", [f"abd3_{net}_warm"]),
+            "table_capacity": m["table_capacity"], "frontier_capacity": m["frontier_capacity"],
+            "peak_mem_gib": {"cold": cold_peak, "reserved_after_cold": torch.cuda.memory_reserved() / 2**30},
+            "widest_level": {k: widest[k] for k in LEVEL_KEYS},
+            "launches": {"cold": cold_launches, "warm": warm_launches},
+            "discoveries": {k: len(p) for k, p in cold.discoveries().items()}, "paths_s": paths_s,
+            "cpu_depth_cut": {"depth": depth, "card_equals_cpu": True, "cpu_wall_s": cpu_wall,
+                              "generated": cpu.state_count(), "unique": cpu.unique_state_count()},
+        }
+        if net == "unordered":
+            # One level per dispatch to the widest frontier: the peak memory
+            # of every bucket, and that level (the widest bucket's) by stage.
+            split_depth = widest["depth"] + 1
+            (single, single_wall, _), peaks = per_level_peaks(
+                lambda: drive(ABD[net](3, 2), depth=split_depth, levels_per_dispatch=1))
+            require([r[:4] for r in levels(single)] == [r[:4] for r in levels(cold)][:len(single.level_log)],
+                    "abd 3c/2s one level per dispatch vs fused, level by level")
+            bucket_peaks = {}
+            for bucket, gib in peaks:
+                bucket_peaks[bucket] = max(bucket_peaks.get(bucket, 0.0), gib)
+            line["peak_mem_gib_by_bucket"] = bucket_peaks
+            line["level_split_ms"] = level_split(single)
+            line["single"] = {"target_max_depth": split_depth, "wall_s": single_wall}
+            shapes = {
+                "levels": [dict(r) for r in cold.level_log], "rungs": rungs(cold),
+                "table_capacity": m["table_capacity"], "generated": counts[0], "unique": counts[1],
+                "A": model.max_actions, "W": model.state_words,
+            }
+            del single
+        out[f"3c2s_{net}"] = line
+        del model, cold, warm, card, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "abd", **out})
+    return launches, shapes
+
+
+def models_phase() -> dict:
+    """The remaining models on the card: ping-pong lossy max 5 (4,094
+    states) and the sliding puzzle's doc board (its 4-slide discovery),
+    each re-executed on the host; timers 3 to depth 5 equal to the CPU's
+    search; and ``PackedAbd(2, 2)`` saved after 8 levels on the CPU and
+    resumed on the card, and the other way, both ending at 875 / 544."""
+    launches = {}
+    pp, pp_wall, launches["ping_pong"] = drive(PackedPingPong(PingPongCfg(False, 5), lossy=True))
+    require(pp.unique_state_count() == PING_PONG_LOSSY5, f"ping-pong unique {pp.unique_state_count()}")
+    pz, pz_wall, launches["puzzle"] = drive(PackedPuzzle([1, 4, 2, 3, 5, 8, 6, 7, 0]))
+    pz.assert_discovery("solved", ["Down", "Right", "Down", "Right"])
+    tm, tm_wall, launches["timers"] = drive(PackedTimers(3), depth=5)
+    same_search(tm, PackedTimers(3).checker().target_max_depth(5).spawn_xla(device="cpu").join(),
+                "timers 3 to depth 5")
+    on_cpu, on_card = (os.path.join(CKPT_DIR, f"abd_{d}.npz") for d in ("cpu", "card"))
+    partial = PackedAbd(2, 2).checker().spawn_xla(device="cpu", levels_per_dispatch=1)
+    for _ in range(8):
+        partial._run_block()
+    partial.save_checkpoint(on_cpu)
+    torch.cuda.synchronize()
+    zero_launches()
+    partial = PackedAbd(2, 2).checker().spawn_xla(levels_per_dispatch=1)
+    for _ in range(8):
+        partial._run_block()
+    partial.save_checkpoint(on_card)
+    to_card = PackedAbd(2, 2).checker().spawn_xla(checkpoint=on_cpu).join()
+    torch.cuda.synchronize()
+    launches["abd_checkpoint"] = launches_now()
+    to_cpu = PackedAbd(2, 2).checker().spawn_xla(device="cpu", checkpoint=on_card).join()
+    a, b = load_checkpoint(on_cpu), load_checkpoint(on_card)
+    require(all(np.array_equal(a[k], b[k]) for k in PAYLOAD_KEYS)
+            and a["meta"]["payload_sha256"] == b["meta"]["payload_sha256"],
+            "abd 2c/2s: the CPU's and the card's checkpoints differ")
+    for c, what in ((to_card, "CPU -> card"), (to_cpu, "card -> CPU")):
+        counts = (c.state_count(), c.unique_state_count(), c.max_depth())
+        require(counts == EXPECTED_ABD[("unordered", 2)], f"abd 2c/2s {what} counts {counts}")
+        check_paths(c)
+    # Ping-pong's "must exceed max" counterexample ends at the boundary,
+    # where the host's terminal test sees the successors the boundary cuts,
+    # so its paths are held to the CPU's rather than re-executed.
+    pp_cpu = PackedPingPong(PingPongCfg(False, 5), lossy=True).checker().spawn_xla(device="cpu").join()
+    require((pp.state_count(), pp.unique_state_count(), pp.max_depth())
+            == (pp_cpu.state_count(), pp_cpu.unique_state_count(), pp_cpu.max_depth()),
+            "ping-pong counts, card vs CPU")
+    require([r[:4] for r in levels(pp)] == [r[:4] for r in levels(pp_cpu)], "ping-pong levels, card vs CPU")
+    dg, dc = pp.discoveries(), pp_cpu.discoveries()
+    require(set(dg) == set(dc) and all(dg[k].into_actions() == dc[k].into_actions() for k in dc),
+            "ping-pong discoveries, card vs CPU")
+    check_paths(pz)
+    for name, n in launches.items():
+        require(all(v > 0 for v in n.values()), f"{name}: kernel launches {n}")
+    emit({"phase": "models",
+          "ping_pong_lossy5": {"generated": pp.state_count(), "unique": pp.unique_state_count(),
+                               "wall_s": pp_wall},
+          "puzzle_doc_board": {"generated": pz.state_count(), "unique": pz.unique_state_count(),
+                               "solved_witness": len(pz.discoveries()["solved"]), "wall_s": pz_wall},
+          "timers3_depth5": {"generated": tm.state_count(), "unique": tm.unique_state_count(),
+                             "card_equals_cpu": True, "wall_s": tm_wall},
+          "abd_checkpoint": {"save_levels": 8, "payload_sha256_equal": True, "generated": to_card.state_count(),
+                             "unique": to_card.unique_state_count()},
+          "launches": launches})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1608,12 +1809,16 @@ def run_phases() -> int:
     new_paths["cpu_card_checkpoint"] = cpu_card_checkpoint_phase()
     new_paths["visitor"] = visitor_phase()
     new_paths.update(increment_phase())
+    abd_launches, abd_shapes = abd_phase()
+    new_paths.update(abd_launches)
+    new_paths.update(models_phase())
     rng = np.random.default_rng(2024)
     b1 = compact_phase(checker, rng)
     m_main = max(r["cand_cap"] for r in checker.level_log)
     b2 = merge_phase(rng, checker.metrics()["table_capacity"], m_main)
-    px = paxos_kernel_phase(shapes, rng)
+    px = model_kernel_phase(shapes, rng)
     rk = rung_kernel_phase(checker, shapes, hv_shapes, rng)
+    ak = model_kernel_phase(abd_shapes, rng, tag="abd3")
     kernels = []
     for name, source, replaces, main in (
         ("compact", "compact.cu", "stateright_tpu/ops/pallas_compact.py:229", b1),
@@ -1627,9 +1832,9 @@ def run_phases() -> int:
             "name": name, "route": "cuda", "source": f"stateright_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
             "bound_by": "bytes", **main,
-            "max_abs_err": max(main["max_abs_err"], px[name]["max_abs_err"],
+            "max_abs_err": max(main["max_abs_err"], px[name]["max_abs_err"], ak[name]["max_abs_err"],
                                *(v["max_abs_err"] for v in new_shapes.values())),
-            "paxos3": px[name], "ladder_and_hv_shapes": new_shapes,
+            "paxos3": px[name], "ladder_and_hv_shapes": new_shapes, "abd3": ak[name],
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

@@ -59,6 +59,11 @@ class CancelTimer(NamedTuple):
     timer: Any
 
 
+def model_timeout() -> Tuple[float, float]:
+    """An arbitrary timeout range for model checking (model.rs:59-64)."""
+    return (0.0, 0.0)
+
+
 def model_peers(self_ix: int, count: int) -> List[Id]:
     """Peer ids for actor ``self_ix`` of ``count`` (model.rs:66-73)."""
     return [Id(j) for j in range(count) if j != self_ix]
@@ -195,4 +200,5 @@ __all__ = [
     "is_no_op_with_timer",
     "majority",
     "model_peers",
+    "model_timeout",
 ]

@@ -8,6 +8,8 @@ stateright's panics on broken invariants).
 - :class:`Layout` / :class:`LayoutBuilder` — named bit-fields over 32-bit
   words. Fields never span word boundaries; array fields are uniformly
   strided so an index held in a tensor can address them.
+- :class:`SlotMultiset` — the packed non-duplicating network: K word-sized
+  slots holding a sorted multiset of envelope codes.
 - :class:`FifoLanes` — the packed ordered network (network.rs:57-67):
   bounded FIFO lanes, one per directed flow.
 - :class:`BoundedHistory` — a fixed-width encoding of the backtracking
@@ -15,24 +17,22 @@ stateright's panics on broken invariants).
   clients with statically bounded operation counts; converts exactly
   to/from :class:`~stateright_tpu_torch.semantics._backtracking.BacktrackingTester`.
 
-The reference's ``SlotMultiset`` (the packed non-duplicating network)
-waits for a model that uses it.
-
 Device side, words are ``[..., W]`` int64 tensors holding 32-bit values
 (``ops/words.py``), batched over any leading shape, and an element index
 is a Python int or an int64 tensor that broadcasts against the batch: a
 read of a tensor index is a ``take_along_dim`` on the word axis, a write a
 ``scatter_``. :meth:`Layout.set` returns a new tensor like the reference's;
-:meth:`Layout.set_` and the device methods of :class:`FifoLanes` and
-:class:`BoundedHistory` write in place, so a model's transition bodies update one buffer per action family
-rather than a copy per field. The reference's scatter-free
+:meth:`Layout.set_` and the device methods of :class:`SlotMultiset`,
+:class:`FifoLanes` and :class:`BoundedHistory` write in place, so a model's
+transition bodies update one buffer per action family rather than a copy
+per field. The reference's scatter-free
 ``_word_update`` works around an XLA:TPU miscompile and has no
 counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -150,6 +150,14 @@ def _lift(t: torch.Tensor, dims: int) -> torch.Tensor:
     return t.reshape((1,) * (dims - t.dim()) + tuple(t.shape))
 
 
+def _where(cond, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.where`` whose ``cond`` may also be a Python bool (the
+    ``enabled=True`` default), which makes no device tensor."""
+    if isinstance(cond, bool):
+        return a if cond else b
+    return torch.where(cond, a, b)
+
+
 class Layout:
     def __init__(self, fields: Dict[str, Field], words: int):
         self.fields = fields
@@ -246,6 +254,151 @@ class Layout:
                     (words[f.word + i // f.epw] >> ((i % f.epw) * f.bits)) & mask
                     for i in range(f.count)
                 ]
+        return out
+
+
+# --------------------------------------------------------------------------
+# Sorted-slot multiset: the packed non-duplicating network.
+# --------------------------------------------------------------------------
+
+
+class SlotMultiset:
+    """K word-sized slots holding a canonical (sorted) multiset of envelope
+    codes.
+
+    Slot encoding: ``(code + 1) << count_bits | count - 1``: the +1 keeps 0
+    for an empty slot even for code 0, and a present slot's count (at least
+    1) is stored less one, so ``count_bits`` caps the multiplicity at
+    ``2**count_bits``. ``count_bits=0`` is the duplicating set: presence
+    only, and a delivery keeps the slot (redeliverable, network.rs:204).
+
+    The slots are a view of a ``Layout`` ``words()`` field named ``field``.
+    The device methods take ``words[..., W]``, update it in place and leave
+    the slots sorted ascending (empty slots first), so equal multisets have
+    equal words. They read no value back to the host and make no shape
+    that depends on the data, so a CUDA graph can capture them.
+    """
+
+    def __init__(self, layout: Layout, field: str, code_bits: int, count_bits: int):
+        f = layout.fields[field]
+        if f.bits != 32:
+            raise ValueError("SlotMultiset requires a words() field")
+        if code_bits + 1 + count_bits > 32:
+            raise ValueError("code_bits + count_bits must fit a word (with +1 code)")
+        self.layout = layout
+        self.field = field
+        self.k = f.count
+        self.base = f.word
+        self.code_bits = code_bits
+        self.count_bits = count_bits
+        self.max_count = 1 << count_bits
+
+    # --- device ops --------------------------------------------------------
+
+    def slots(self, words: torch.Tensor) -> torch.Tensor:
+        """The ``[..., K]`` slot words (a view of ``words``)."""
+        return words[..., self.base:self.base + self.k]
+
+    def _with_slots(self, words: torch.Tensor, slots: torch.Tensor) -> None:
+        # Canonical: empty slots (0) first, then by code.
+        words[..., self.base:self.base + self.k] = torch.sort(slots, dim=-1).values
+
+    def decode(self, slots: torch.Tensor):
+        """``(codes, counts, present)`` of raw ``[..., K]`` slots."""
+        present = slots != 0
+        codes = ((slots >> self.count_bits) - present.to(slots.dtype)) & MASK32
+        counts = torch.where(present, (slots & (self.max_count - 1)) + 1, 0)
+        return codes, counts, present
+
+    def send(self, words: torch.Tensor, code, enabled=True) -> torch.Tensor:
+        """Add one instance of ``code`` in place; returns the bool
+        ``overflow``: no free slot for a new code, or its count is at the
+        cap (nothing is written: a bump past the cap would carry into the
+        code bits and decode as another envelope). ``code`` and
+        ``enabled`` are Python scalars or tensors of the batch shape."""
+        s = self.slots(words).clone()
+        cb = self.count_bits
+        code_col = code[..., None] if isinstance(code, torch.Tensor) else code
+        present = s != 0
+        match = present & ((s >> cb) == code_col + 1)
+        has = match.any(-1)
+        if cb == 0:  # duplicating set: membership only
+            bumped = s
+            count_ovf = torch.zeros_like(has)
+        else:
+            at_max = match & ((s & (self.max_count - 1)) == self.max_count - 1)
+            count_ovf = at_max.any(-1)
+            bumped = torch.where(match & ~at_max, s + 1, s)
+        # The first empty slot (sorted slots put empties first), else 0.
+        first_empty = torch.argmin(present.to(torch.int32), dim=-1, keepdim=True)
+        can_insert = ~torch.gather(present, -1, first_empty).squeeze(-1)
+        encoded = ((code_col + 1) << cb) & MASK32
+        if isinstance(encoded, torch.Tensor):
+            inserted = s.scatter(-1, first_empty, torch.broadcast_to(encoded, first_empty.shape))
+        else:
+            inserted = s.scatter(-1, first_empty, encoded)
+        s_new = torch.where(has[..., None], bumped,
+                            torch.where(can_insert[..., None], inserted, s))
+        overflow = enabled & torch.where(has, count_ovf, ~can_insert)
+        keep = enabled[..., None] if isinstance(enabled, torch.Tensor) else enabled
+        self._with_slots(words, _where(keep, s_new, s))
+        return overflow
+
+    def remove_slot(self, words: torch.Tensor, i: Index, enabled=True) -> None:
+        """Remove one instance from slot ``i`` in place (a delivery on a
+        non-duplicating network, or a drop); a no-op where ``enabled`` is
+        false."""
+        s = self.slots(words).clone()
+        if isinstance(i, torch.Tensor):
+            idx = torch.broadcast_to(i, s.shape[:-1])[..., None]
+            si = torch.gather(s, -1, idx).squeeze(-1)
+        else:
+            si = s[..., i]
+        if self.count_bits:
+            last = (si & (self.max_count - 1)) == 0
+            new_si = torch.where(last, 0, si - 1)
+        else:
+            new_si = torch.zeros_like(si)
+        new_si = _where(enabled, new_si, si)
+        if isinstance(i, torch.Tensor):
+            s.scatter_(-1, idx, new_si[..., None])
+        else:
+            s[..., i] = new_si
+        self._with_slots(words, s)
+
+    # --- host codec --------------------------------------------------------
+
+    def host_pack(self, code_counts: Sequence[Tuple[int, int]]) -> List[int]:
+        """Sorted slot words from ``(code, count)`` pairs; raises
+        :class:`OverflowError32` past the slot count or a field width."""
+        if len(code_counts) > self.k:
+            raise OverflowError32(f"{len(code_counts)} distinct envelopes > {self.k} slots")
+        codes = [c for c, _n in code_counts]
+        if len(set(codes)) != len(codes):
+            raise OverflowError32(
+                "duplicate envelope codes — merge counts before packing "
+                "(duplicates would break canonical slot words)"
+            )
+        slots = []
+        for code, count in code_counts:
+            if not 0 <= code < (1 << self.code_bits):
+                raise OverflowError32(f"envelope code {code} exceeds {self.code_bits} bits")
+            if not 1 <= count <= self.max_count:
+                raise OverflowError32(f"envelope count {count} outside 1..{self.max_count}")
+            slots.append(((code + 1) << self.count_bits) | (count - 1))
+        slots.sort()
+        return [0] * (self.k - len(slots)) + slots
+
+    def host_unpack(self, slot_words: Sequence[int]) -> List[Tuple[int, int]]:
+        """``(code, count)`` pairs of the present slots."""
+        out = []
+        for s in slot_words:
+            s = int(s)
+            if s == 0:
+                continue
+            code = (s >> self.count_bits) - 1
+            count = (s & (self.max_count - 1)) + 1 if self.count_bits else 1
+            out.append((code, count))
         return out
 
 

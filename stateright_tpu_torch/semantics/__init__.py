@@ -1,12 +1,12 @@
 """Consistency semantics: reference objects and concurrent-history testers.
 
 The port's own copy of ``stateright_tpu/semantics/__init__.py`` (stateright's
-``src/semantics.rs``), with the register spec and the two testers; the
-vector and write-once-register specs wait for the models that use them.
-The device form of the testers is :mod:`.device`.
-correctness of a concurrent system is defined by a sequential "reference
-object" (:class:`SequentialSpec`) plus a consistency model that constrains how
-concurrent operation histories may be serialized against it:
+``src/semantics.rs``), with the register, vector and write-once-register
+specs and the two testers; the device form of the testers is
+:mod:`.device`. Correctness of a concurrent system is defined by a
+sequential "reference object" (:class:`SequentialSpec`) plus a consistency
+model that constrains how concurrent operation histories may be serialized
+against it:
 
 - :class:`LinearizabilityTester` — real-time order across threads must be
   respected (semantics/linearizability.rs:57).
@@ -78,6 +78,8 @@ class HistoryError(ValueError):
 from .linearizability import LinearizabilityTester  # noqa: E402
 from .sequential_consistency import SequentialConsistencyTester  # noqa: E402
 from . import register  # noqa: E402
+from . import vec  # noqa: E402
+from . import write_once_register  # noqa: E402
 
 __all__ = [
     "ConsistencyTester",
@@ -86,4 +88,6 @@ __all__ = [
     "SequentialConsistencyTester",
     "SequentialSpec",
     "register",
+    "vec",
+    "write_once_register",
 ]

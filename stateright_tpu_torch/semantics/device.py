@@ -160,13 +160,38 @@ class DeviceRegister:
         return sem_ok, v
 
 
+class DeviceWORegister:
+    """Device form of
+    :class:`~stateright_tpu_torch.semantics.write_once_register.WORegister`
+    (write_once_register.rs:9-58: the first write wins, a rewrite of the
+    same value succeeds, a write of another value fails) under
+    ``wo_history_codecs``: stored op codes — ``Read = 1``,
+    ``Write(values[i]) = 2 + i``; stored ret codes — ``WriteOk = 1``,
+    ``WriteFail = 2``, ``ReadOk(values[i]) = 3 + i``.
+
+    ``o - 2`` is negative for ``o`` in {0, 1} where the reference's uint32
+    wraps; neither value equals a running value, and the write's value is
+    used only where ``o >= 2``, so the verdicts are the same."""
+
+    def step(self, v, o, r, is_comp):
+        is_read = o == 1
+        is_write = o >= 2
+        w_val = o - 2
+        accepts = (v == 0) | (v == w_val)  # unwritten, or the same value
+        write_ok = torch.where(accepts, r == 1, r == 2)
+        sem_ok = ~is_comp | torch.where(is_read, r == v + 3, write_ok)
+        v = torch.where(is_write & accepts, w_val, v)
+        return sem_ok, v
+
+
 def device_serializable(hist, words: torch.Tensor, spec, *, real_time: bool,
                         pattern_limit: Optional[int] = None) -> torch.Tensor:
     """``bool[F]``: whether the packed history in each row of
     ``words[F, W]`` admits a legal serialization of ``spec`` — the batched,
     exact device form of ``BacktrackingTester.serialized_history() is not
     None`` (real_time=True: linearizability; False: sequential
-    consistency). ``hist`` is the model's bound :class:`BoundedHistory`.
+    consistency). ``hist`` is the model's bound :class:`BoundedHistory`;
+    ``spec`` is :class:`DeviceRegister` or :class:`DeviceWORegister`.
 
     ``pattern_limit`` evaluates only a sample of that many patterns
     (:func:`interleaving_tids`): True still proves serializability, False
