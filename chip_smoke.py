@@ -102,9 +102,23 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    card, and the other way; then holds both kernels against their plain
    versions at the ABD 3c/2s shapes (``abd3_kernels``, as item 5 at the
    Paxos shapes), exactly, and times them;
-11. prints the ``{"kernels": [...]}`` line (launches summed over every
+11. drives the device symmetry reduction (``symmetry``) through
+   ``checker().symmetry().spawn_xla()``: 2pc rm=14, the widest the model
+   packs, at the JAX package's pins (227,468 / 12,323 / 44) cold and then
+   warm on one model instance (the warm run capturing nothing), both
+   discoveries re-executed on the host, a warm run under
+   ``torch.profiler``, and one level's device operations and time with and
+   without the canonicalization at the widest bucket; rm=8 (15,287 / 1,461
+   / 26) equal to the CPU level by level; one rm=5 instance through
+   symmetric, plain and symmetric runs, each exact, the third capturing
+   nothing; the increment models' pins through the spec and through
+   ``packed_representative``; the canonicalization on 2^20 seeded rm=14
+   rows bitwise against its host twin and its CPU run; and a symmetric rm=8
+   checkpoint saved on the CPU and resumed on the card, and the other way,
+   refused without symmetry;
+12. prints the ``{"kernels": [...]}`` line (launches summed over every
    main-path run: rm=8, Paxos 3c/3s, single-copy-register, the
-   host-verified runs and the paths of items 9 and 10, each also by path)
+   host-verified runs and the paths of items 9 to 11, each also by path)
    and, last, the device line.
 
 Every line but the nvidia-smi one is a JSON object. Any failed check
@@ -115,6 +129,7 @@ from __future__ import annotations
 
 import gc
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -147,11 +162,13 @@ from stateright_tpu_torch.models.single_copy_register import (
     PackedSingleCopyRegister,
     PackedSingleCopyRegisterOrdered,
 )
+from stateright_tpu_torch.core import Property
 from stateright_tpu_torch.models.two_phase_commit import PackedTwoPhaseSys
 from stateright_tpu_torch.ops import _cuda
 from stateright_tpu_torch.ops.compact import compact, compact_plain
 from stateright_tpu_torch.ops.merge import merge_insert, merge_insert_plain
 from stateright_tpu_torch.ops.words import DTYPE, from_u32
+from stateright_tpu_torch.sym import canonicalize_host, compile_canon
 from stateright_tpu_torch.xla import XlaChecker
 
 #: H100 SXM device-memory rate, bytes per second (NVIDIA's data sheet).
@@ -296,16 +313,18 @@ def zero_launches() -> None:
     merge_insert.launches = 0
 
 
-def drive(model, depth=None, **kw):
+def drive(model, depth=None, sym: bool = False, **kw):
     """One ``spawn_xla().join()`` of ``model`` (to ``target_max_depth(depth)``
-    if given) timed on the host clock, launch counters zeroed just before
-    and read just after."""
+    if given, through ``symmetry()`` if ``sym``) timed on the host clock,
+    launch counters zeroed just before and read just after."""
     torch.cuda.synchronize()
     zero_launches()
     t0 = time.perf_counter()
     builder = model.checker()
     if depth is not None:
         builder = builder.target_max_depth(depth)
+    if sym:
+        builder = builder.symmetry()
     c = builder.spawn_xla(**kw).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1046,7 +1065,8 @@ def merge_phase(rng, c_main: int, m_main: int) -> dict:
 def model_kernel_phase(shapes, rng, tag: str = "paxos3") -> dict:
     """Both kernels against their plain versions, exactly, at the shapes of
     a wide model's run (``shapes``; 20 launches each), and timed there: the
-    grid compaction (P = W + 3 lanes: 49 for Paxos 3c/3s, 42 for ABD 3c/2s)
+    grid compaction (P = W + 3 lanes: 49 for Paxos 3c/3s, 42 for ABD 3c/2s,
+    5 for 2pc rm=14 under symmetry)
     at its widest bucket's densest level, the frontier compaction (P = W +
     1) at the level with the most new states, and ``merge_insert`` at its
     table capacity and widest candidate buffer. The inputs are made on the
@@ -1773,6 +1793,265 @@ def models_phase() -> dict:
     return launches
 
 
+# --- symmetry ------------------------------------------------------------------
+
+#: ``PackedTwoPhaseSys(rm).checker().symmetry()``: (generated, unique, max
+#: depth), as the JAX package's engine counts them.
+EXPECTED_2PC_SYM = {5: (2_048, 314, 17), 8: (15_287, 1_461, 26), 14: (227_468, 12_323, 44)}
+#: The increment models' unique counts, full space and reduced
+#: (``tests/test_symmetry.py``), by (model, threads).
+EXPECTED_INCREMENT_SYM = {
+    ("increment", 2): (13, 8), ("increment", 3): (84, 22),
+    ("increment_lock", 2): (17, 9), ("increment_lock", 3): (61, 13),
+}
+#: Seeded rm=14 rows the card's canonicalization is held against its host
+#: twin and its CPU run on.
+CANON_ROWS = 1 << 20
+#: The depth a symmetric rm=8 search is saved at on one device and resumed
+#: on the other.
+SYM_SAVE_DEPTH = 12
+#: Calls profiled to count a level's (or the canonicalization's) device
+#: operations.
+PRICE_CALLS = 20
+
+
+class _FullSpace:
+    """An unreachable ``sometimes`` in place of the always-properties, so that
+    the search exhausts the space (``tests/test_symmetry.py``'s variants)."""
+
+    def properties(self):
+        return [Property.sometimes("unreachable", lambda _m, _s: False)]
+
+    def packed_properties(self, words):
+        return torch.zeros((words.shape[0], 1), dtype=torch.bool, device=words.device)
+
+
+class _IncrementFull(_FullSpace, PackedIncrement):
+    pass
+
+
+class _IncrementLockFull(_FullSpace, PackedIncrementLock):
+    pass
+
+
+def sym_line(c, what: str, launches: dict, wall: float) -> dict:
+    """Checks of a symmetric 2pc run: its pins, both discoveries re-executed
+    to valid paths (the host's canonicalization agrees with the card's),
+    the spec's tag in ``metrics()`` and every ``level_log`` row; its line."""
+    rm = c.model().rm_count
+    counts = (c.state_count(), c.unique_state_count(), c.max_depth())
+    require(counts == EXPECTED_2PC_SYM[rm], f"{what}: counts {counts}")
+    require(all(n > 0 for n in launches.values()), f"{what}: kernel launches {launches}")
+    found = c.discoveries()
+    require(sorted(found) == ["abort agreement", "commit agreement"], f"{what}: discoveries {sorted(found)}")
+    check_paths(c)
+    m = c.metrics()
+    tag = f"spec:{c.model().symmetry_spec.spec_hash()[:12]}"
+    require(m["symmetry"] == tag and all(r["sym"] == tag for r in c.level_log), f"{what}: tag")
+    return {
+        "generated": counts[0], "unique": counts[1], "max_depth": counts[2], "wall_s": wall,
+        "states_per_s": counts[0] / wall, "levels": len(c.level_log), "dispatches": m["dispatches"],
+        "dispatch_log": c.dispatch_log, "graph_captures": m["graph_captures"],
+        "capture_s": m["graph_capture_s"], "dead_replays": m["dead_replays"],
+        "cand_retries": m["cand_retries"], "symmetry": tag, "launches": launches,
+        "discoveries": {k: len(p) for k, p in found.items()},
+    }
+
+
+def replay_price(model, warm) -> dict:
+    """One level's device operations and device time with and without the
+    canonicalization, at the widest bucket of ``warm`` (a symmetric run of
+    ``model``): its full-rung program replayed beside the plain program of
+    the same shape key, captured on the same model instance (so on the same
+    carry, with the gate closed: a dead level runs every operation). Also
+    the canonicalization alone on that bucket's frontier and candidate
+    buffer."""
+    tag = warm.metrics()["symmetry"]
+    run_cap = max(b for b, n in warm.dispatch_log if n)
+    programs = graphs.cache_for(model, torch.device("cuda")).programs
+    key = next(k for k in programs if k[0] == k[1] == run_cap and k[-1] == tag)
+    plain = model.checker().spawn_xla(symmetry="off")
+    plain._cand_caps[run_cap] = key[2]
+    require(plain._tail()[:3] == key[3:6], f"replay_price: plain checker's tail {plain._tail()}")
+    plain_prog = plain._program(run_cap, key[1:3])
+    sym_prog = programs[key]
+    sym_prog.carry.s[graphs.S["budget"]] = 0
+    canon = compile_canon(model.symmetry_spec)
+    frontier = torch.randint(0, 2**32, (run_cap, 2), dtype=DTYPE, device="cuda")
+    cands = torch.randint(0, 2**32, (2, key[2]), dtype=DTYPE, device="cuda")
+    calls = {
+        "symmetric_level": sym_prog.graph.replay, "plain_level": plain_prog.graph.replay,
+        "canon_frontier": lambda: canon(frontier.T), "canon_candidates": lambda: canon(cands),
+    }
+    line = {"run_cap": run_cap, "cand_cap": key[2]}
+    for name, fn in calls.items():
+        fn()
+        _, _, kernels = profiled(lambda: [fn() for _ in range(PRICE_CALLS)])
+        line[name] = {
+            "device_ops": sum(n for _, _, n in kernels) / PRICE_CALLS if kernels else "not measured",
+            "device_ms": sum(ms for _, ms, _ in kernels) / PRICE_CALLS if kernels else "not measured",
+            "ms": timed_ms(fn, queued=True),
+        }
+    return line
+
+
+def _host_canon_rows(args):
+    """``canonicalize_host`` over a chunk of rows (a pool worker's task)."""
+    spec, rows = args
+    return np.stack([canonicalize_host(spec, r) for r in rows])
+
+
+def canon_oracle(rng) -> dict:
+    """``compile_canon`` of the rm=14 spec on the card over ``CANON_ROWS``
+    seeded rows of random words, bitwise against its host twin (in a pool
+    of worker processes) and against the same function on the CPU; timed."""
+    spec = PackedTwoPhaseSys(14).symmetry_spec
+    rows = rng.integers(0, 2**32, size=(CANON_ROWS, 2), dtype=np.uint64).astype(np.uint32)
+    canon = compile_canon(spec)
+    planes = from_u32(rows, "cuda").T
+    card = canon(planes).T
+    torch.cuda.synchronize()
+    card = card.cpu().numpy()
+    t0 = time.perf_counter()
+    cpu = canon(from_u32(rows, "cpu").T).T.numpy()
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(os.cpu_count()) as pool:
+        host = np.concatenate(pool.map(
+            _host_canon_rows, [(spec, chunk) for chunk in np.array_split(rows, 64)]))
+    host_s = time.perf_counter() - t0
+    require(np.array_equal(card, cpu), "canon: card vs CPU")
+    require(np.array_equal(card.astype(np.uint32), host), "canon: card vs canonicalize_host")
+    changed = int((host != rows).any(1).sum())
+    return {"rows": CANON_ROWS, "rows_changed": changed, "equal_host_twin": True,
+            "equal_cpu": True, "card_ms": timed_ms(lambda: canon(planes), queued=True),
+            "cpu_s": cpu_s, "host_twin_s": host_s}
+
+
+def symmetry_phase(rng) -> dict:
+    """Device symmetry reduction through ``Packed<Model>(...).checker()
+    .symmetry().spawn_xla()`` on the card: 2pc rm=14 (the widest the model
+    packs) cold and then warm on one model instance at the JAX package's
+    pins, the warm run capturing nothing, and a warm run under
+    ``torch.profiler``; the canonicalization's price per level
+    (:func:`replay_price`); rm=8 equal to the CPU level by level; one rm=5
+    instance through symmetric, plain and symmetric runs (the program key
+    holds the tag: the third run captures nothing); the increment models
+    through the spec and through ``packed_representative``; the
+    canonicalization against its host twin (:func:`canon_oracle`); and a
+    symmetric rm=8 checkpoint crossing CPU and card both ways. Returns the
+    launches of each path and the shapes of the warm rm=14 run."""
+    launches, out = {}, {}
+    model = PackedTwoPhaseSys(14)
+    torch.cuda.reset_peak_memory_stats()
+    PROGRAM_USE.segment = "sym14_cold"
+    cold, cold_wall, launches["sym_rm14"] = drive(model, sym=True)
+    PROGRAM_USE.segment = "sym14_warm"
+    warm, warm_wall, warm_launches = drive(model, sym=True)
+    PROGRAM_USE.segment = "other"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out["rm14_cold"] = sym_line(cold, "sym rm=14 cold", launches["sym_rm14"], cold_wall)
+    out["rm14_warm"] = sym_line(warm, "sym rm=14 warm", warm_launches, warm_wall)
+    require(out["rm14_cold"]["graph_captures"] > 0, "sym rm=14: the cold run captured no graph")
+    require(out["rm14_warm"]["graph_captures"] == 0,
+            f"sym rm=14: the warm run captured {out['rm14_warm']['graph_captures']} graphs")
+    require([r[:4] for r in levels(warm)] == [r[:4] for r in levels(cold)], "sym rm=14 warm vs cold")
+    out["rm14_peak_mem_gib"] = peak
+    out["rm14_program_use"] = PROGRAM_USE.summary("sym14_cold", ["sym14_warm"])
+    out["rm14_levels"] = [r[:4] for r in levels(warm)]
+    c, wall, kernels = profiled(lambda: model.checker().symmetry().spawn_xla().join())
+    require(c.metrics()["graph_captures"] == 0, "sym rm=14: the profiled run captured graphs")
+    m = c.metrics()
+    replays = len(c.level_log) + m["dead_replays"] + m["cand_retries"]
+    busy = sum(ms for _, ms, _ in kernels)
+    out["rm14_warm_profile"] = {
+        "profiled_wall_s": wall, "replays": replays,
+        "device_busy_ms": busy if kernels else "not measured",
+        "device_idle_share": 1 - busy / (wall * 1e3) if kernels else "not measured",
+        "device_ops_per_replay": sum(n for _, _, n in kernels) / replays if kernels else "not measured",
+        "top_kernels": [{"name": k[:90], "ms": ms, "calls": n}
+                        for k, ms, n in sorted(kernels, key=lambda k: -k[1])[:10]],
+    }
+    out["rm14_replay_price"] = replay_price(model, warm)
+    shapes = {
+        "levels": [dict(r) for r in warm.level_log], "table_capacity": warm.metrics()["table_capacity"],
+        "generated": warm.state_count(), "unique": warm.unique_state_count(),
+        "A": model.max_actions, "W": model.state_words,
+    }
+    del model, cold, warm, c
+    gc.collect()
+
+    gpu, wall, launches["sym_rm8"] = drive(PackedTwoPhaseSys(8), sym=True)
+    cpu = PackedTwoPhaseSys(8).checker().symmetry().spawn_xla(device="cpu").join()
+    out["rm8"] = sym_line(gpu, "sym rm=8", launches["sym_rm8"], wall)
+    same_search(gpu, cpu, "sym rm=8, card vs CPU")
+    out["rm8"]["card_equals_cpu"] = True
+
+    model = PackedTwoPhaseSys(5)
+    runs = []
+    for sym in (True, False, True):
+        c, wall, n = drive(model, sym=sym)
+        want = EXPECTED_2PC_SYM[5][:2] if sym else EXPECTED_2PC[5]
+        require((c.state_count(), c.unique_state_count()) == want, f"rm=5 cache key: sym={sym}")
+        runs.append({"symmetry": c.metrics()["symmetry"], "generated": c.state_count(),
+                     "unique": c.unique_state_count(), "graph_captures": c.metrics()["graph_captures"],
+                     "wall_s": wall})
+        launches[f"sym_rm5_{len(runs)}"] = n
+    require(runs[2]["graph_captures"] == 0, f"rm=5 cache key: the third run captured {runs[2]}")
+    out["rm5_cache_key"] = runs
+
+    inc = {}
+    for (name, n), (full, reduced) in EXPECTED_INCREMENT_SYM.items():
+        cls = _IncrementFull if name == "increment" else _IncrementLockFull
+        off, _, _ = drive(cls(n))
+        spec, _, n_spec = drive(cls(n), sym=True)
+        bare = cls(n)
+        del bare.symmetry_spec
+        rep, _, n_rep = drive(bare, sym=True)
+        got = (off.unique_state_count(), spec.unique_state_count(), rep.unique_state_count())
+        require(got == (full, reduced, reduced), f"{name} {n}: {got}")
+        require(spec.metrics()["symmetry"].startswith("spec:")
+                and rep.metrics()["symmetry"] == "model:packed_representative", f"{name} {n}: tags")
+        launches[f"sym_{name}{n}_spec"], launches[f"sym_{name}{n}_rep"] = n_spec, n_rep
+        inc[f"{name}{n}"] = {"full": got[0], "spec": got[1], "packed_representative": got[2],
+                             "spec_tag": spec.metrics()["symmetry"]}
+    out["increment"] = inc
+
+    out["canon_oracle"] = canon_oracle(rng)
+
+    on_cpu, on_card = (os.path.join(CKPT_DIR, f"sym_rm8_{d}.npz") for d in ("cpu", "card"))
+    run_to_depth(PackedTwoPhaseSys(8), SYM_SAVE_DEPTH, device="cpu", symmetry="on").save_checkpoint(on_cpu)
+    torch.cuda.synchronize()
+    zero_launches()
+    run_to_depth(PackedTwoPhaseSys(8), SYM_SAVE_DEPTH, symmetry="on").save_checkpoint(on_card)
+    to_card = PackedTwoPhaseSys(8).checker().symmetry().spawn_xla(checkpoint=on_cpu).join()
+    torch.cuda.synchronize()
+    launches["sym_checkpoint"] = launches_now()
+    to_cpu = PackedTwoPhaseSys(8).checker().symmetry().spawn_xla(device="cpu", checkpoint=on_card).join()
+    a, b = load_checkpoint(on_cpu), load_checkpoint(on_card)
+    require(a["meta"]["symmetry"] == b["meta"]["symmetry"] == "spec:7e95d6c76225",
+            f"sym checkpoint tags {a['meta']['symmetry']}, {b['meta']['symmetry']}")
+    require(all(np.array_equal(a[k], b[k]) for k in PAYLOAD_KEYS), "sym rm=8: the CPU's and the card's checkpoints differ")
+    for c, what in ((to_card, "CPU -> card"), (to_cpu, "card -> CPU")):
+        require((c.state_count(), c.unique_state_count(), c.max_depth()) == EXPECTED_2PC_SYM[8],
+                f"sym rm=8 {what} counts")
+        require(tail_levels(c, SYM_SAVE_DEPTH) == tail_levels(cpu, SYM_SAVE_DEPTH), f"sym rm=8 {what} levels")
+        check_paths(c)
+    for device in ("cuda", "cpu"):
+        try:
+            PackedTwoPhaseSys(8).checker().spawn_xla(device=device, checkpoint=on_card)
+        except ValueError as e:
+            require("symmetry" in str(e), f"sym checkpoint without symmetry: {e}")
+        else:
+            require(False, f"a symmetric checkpoint resumed without symmetry on {device}")
+    out["checkpoint"] = {"save_depth": SYM_SAVE_DEPTH, "symmetry": a["meta"]["symmetry"],
+                         "payload_equal": True, "resumed_without_symmetry": "ValueError"}
+    for name, n in launches.items():
+        require(all(v > 0 for v in n.values()), f"{name}: kernel launches {n}")
+    emit({"phase": "symmetry", **out, "launches": launches})
+    return launches, shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1812,6 +2091,8 @@ def run_phases() -> int:
     abd_launches, abd_shapes = abd_phase()
     new_paths.update(abd_launches)
     new_paths.update(models_phase())
+    sym_launches, sym_shapes = symmetry_phase(np.random.default_rng(2024))
+    new_paths.update(sym_launches)
     rng = np.random.default_rng(2024)
     b1 = compact_phase(checker, rng)
     m_main = max(r["cand_cap"] for r in checker.level_log)
@@ -1819,6 +2100,7 @@ def run_phases() -> int:
     px = model_kernel_phase(shapes, rng)
     rk = rung_kernel_phase(checker, shapes, hv_shapes, rng)
     ak = model_kernel_phase(abd_shapes, rng, tag="abd3")
+    sk = model_kernel_phase(sym_shapes, rng, tag="sym14")
     kernels = []
     for name, source, replaces, main in (
         ("compact", "compact.cu", "stateright_tpu/ops/pallas_compact.py:229", b1),
@@ -1833,8 +2115,9 @@ def run_phases() -> int:
             "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
             "bound_by": "bytes", **main,
             "max_abs_err": max(main["max_abs_err"], px[name]["max_abs_err"], ak[name]["max_abs_err"],
-                               *(v["max_abs_err"] for v in new_shapes.values())),
+                               sk[name]["max_abs_err"], *(v["max_abs_err"] for v in new_shapes.values())),
             "paxos3": px[name], "ladder_and_hv_shapes": new_shapes, "abd3": ak[name],
+            "sym14": sk[name],
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

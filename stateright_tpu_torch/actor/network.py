@@ -1,11 +1,10 @@
 """In-state message collections with three delivery semantics.
 
 The port's own copy of ``stateright_tpu/actor/network.py`` (stateright's
-``src/actor/network.rs``), less the symmetry rewrite (``__rewrite__``),
-which waits for the symmetry slice.  The network is a *data
-structure inside each model state*, not a transport: enumerating deliverable
-envelopes (plus drops for lossy networks) is what generates the
-nondeterministic interleavings the checker explores.
+``src/actor/network.rs``).  The network is a *data structure inside each
+model state*, not a transport: enumerating deliverable envelopes (plus
+drops for lossy networks) is what generates the nondeterministic
+interleavings the checker explores.
 
 Unlike the reference's mutate-in-place methods, operations here return new
 network values — the functional style matches how the engines clone states,
@@ -107,6 +106,18 @@ class Network:
 
     def __len__(self) -> int:
         raise NotImplementedError
+
+    def __rewrite__(self, plan):
+        """Remaps actor ids through a symmetry permutation by rebuilding the
+        network from rewritten envelopes (network.rs:311-324)."""
+        from ..utils.rewrite_plan import rewrite
+
+        ctor = {
+            OrderedNetwork: Network.new_ordered,
+            UnorderedDuplicatingNetwork: Network.new_unordered_duplicating,
+            UnorderedNonDuplicatingNetwork: Network.new_unordered_nonduplicating,
+        }[type(self)]
+        return ctor([rewrite(env, plan) for env in self.iter_all()])
 
 
 def _stable_sorted(envs) -> List[Envelope]:

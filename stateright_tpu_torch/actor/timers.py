@@ -46,5 +46,14 @@ class Timers:
     def __fingerprint_key__(self):
         return self._set
 
+    def __rewrite__(self, plan) -> "Timers":
+        """Each pending timer rewritten through a symmetry permutation, as
+        stateright's ``Rewrite`` impls rewrite a set's elements; the JAX
+        package's ``Timers`` has no such method, so its
+        ``ActorModelState.representative`` raises on every state."""
+        from ..utils.rewrite_plan import rewrite
+
+        return Timers(frozenset(rewrite(t, plan) for t in self._set))
+
     def __repr__(self) -> str:
         return f"Timers({sorted(map(repr, self._set))})"

@@ -69,10 +69,13 @@ class CheckerBuilder:
         ("auto" = 3 rungs, or 1..3), ``host_verified_cap`` (128 candidate
         rows a level for each host-verified property), ``visit_cap`` (4096
         visited states a level), ``checkpoint`` (resume from a file of
-        either package) and ``checkpoint_to``/``checkpoint_every``/
-        ``checkpoint_keep`` (auto-checkpointing). Raises
-        ``NotImplementedError`` with ``symmetry()`` set: device symmetry is
-        not ported yet (ROADMAP A6)."""
+        either package), ``checkpoint_to``/``checkpoint_every``/
+        ``checkpoint_keep`` (auto-checkpointing) and ``symmetry`` ("auto",
+        the default, honours ``symmetry()``; "on" or "off" force it; the
+        ``STPU_SYMMETRY`` environment variable when not given). Under
+        symmetry the engine canonicalizes through the model's
+        ``symmetry_spec`` or ``packed_representative``, and raises
+        ``SymmetryUnsupported`` for a model with neither."""
         from ..xla import XlaChecker
 
         return XlaChecker(self, **kwargs)

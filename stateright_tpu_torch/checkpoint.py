@@ -127,8 +127,9 @@ def save_checkpoint(checker, path: str, keep: int = 1) -> None:
         "state_words": checker._W,
         "max_actions": checker._A,
         "property_names": checker._prop_names,
-        # The reference's symmetry identity; the port's engine has no device
-        # symmetry yet, so it writes None and resumes only None.
+        # The symmetry identity (None, "spec:<hash12>" or
+        # "model:packed_representative"), the same string in both packages:
+        # a file resumes only under the tag it was written with.
         "symmetry": getattr(checker, "_sym_tag", None),
         "depth": checker._depth,
         "max_depth": checker._max_depth,

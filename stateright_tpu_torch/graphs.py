@@ -20,10 +20,12 @@ the gate.
   never run at the same time, and a checker loads its state into the carry
   at a block's start and clones what it keeps at the block's end.
 - A :class:`Program` is one shape key ``(run_cap, rows, cand_cap,
-  table_capacity, levels_per_dispatch, hv_cap)``: the gated level of bucket
-  ``run_cap`` run on its first ``rows`` frontier rows at candidate cap
-  ``cand_cap`` (a rung of the candidate ladder; ``rows == run_cap`` is the
-  full rung). It holds its graph on a card, or nothing on the CPU, where the
+  table_capacity, levels_per_dispatch, hv_cap, sym_tag)``: the gated level
+  of bucket ``run_cap`` run on its first ``rows`` frontier rows at
+  candidate cap ``cand_cap`` (a rung of the candidate ladder; ``rows ==
+  run_cap`` is the full rung), canonicalizing its dedup keys under the
+  symmetry ``sym_tag`` (None: none), as the reference keys its programs on
+  ``_sym_tag``. It holds its graph on a card, or nothing on the CPU, where the
   checker runs the same gated level eagerly.
 - A :class:`ProgramCache` per model and device holds the carries, the
   programs (every rung of each bucket a block ran at), and the graph
@@ -184,7 +186,7 @@ class ProgramCache:
         #: ``(table_capacity, levels_per_dispatch, hv_cap)`` -> Carry.
         self.carries: Dict[Tuple[int, int, int], Carry] = {}
         #: ``(run_cap, rows, cand_cap, table_capacity, levels_per_dispatch,
-        #: hv_cap)`` -> Program.
+        #: hv_cap, sym_tag)`` -> Program.
         self.programs: Dict[Tuple[int, ...], Program] = {}
 
     def carry(self, words: int, n_props: int, table_capacity: int, levels: int,
@@ -206,21 +208,30 @@ class ProgramCache:
         self.programs[key] = prog
         return prog
 
-    def drop(self, table_capacity: int, levels: int) -> None:
-        """Forget every program and the carry at ``table_capacity``. On a
-        card, the memory of the dropped graphs and carry is handed back
-        before the programs at the grown capacity are made (a wide model's
-        largest bucket could not hold two levels' worth at once), and later
+    def drop(self, shape: Tuple[int, int, int]) -> None:
+        """Forget the carry of ``shape`` = ``(table_capacity,
+        levels_per_dispatch, hv_cap)`` and every program on it, of every
+        symmetry tag: those of another tag than the grown checker's are
+        made anew when a check of that tag needs them. On a card, the
+        memory of the dropped graphs and carry is handed back before the
+        programs at the grown capacity are made (a wide model's largest
+        bucket could not hold two levels' worth at once), and later
         captures go to a new pool: a pool whose graphs are all gone is
         freed with them and cannot take another capture."""
-        for key in [k for k in self.programs if k[3:5] == (table_capacity, levels)]:
+        for key in [k for k in self.programs if k[3:6] == shape]:
             del self.programs[key]
-        for key in [k for k in self.carries if k[:2] == (table_capacity, levels)]:
-            del self.carries[key]
+        self.carries.pop(shape, None)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
             self.pool = torch.cuda.graph_pool_handle()
+
+
+def graph_inputs(model) -> dict:
+    """Tensors that the model instance's graphs read outside their carries
+    (the symmetry canonicalization's index tables), kept as long as its
+    program caches: a graph holds the addresses of what it reads."""
+    return model.__dict__.setdefault("_xla_graph_inputs", {})
 
 
 def cache_for(model, device: torch.device) -> ProgramCache:

@@ -26,17 +26,13 @@ import torch
 
 from ..core import Model, Property
 from ..packing import LayoutBuilder, bits_for
+from ..sym import SymmetrySpec
 from ..utils.variant import variant
 
 Proc = Tuple[int, int]  # (thread-local value t, program counter pc)
 
 Read = variant("Read", ["thread"])
 Write = variant("Write", ["thread"])
-
-#: The symmetry slice (``sym/``, ROADMAP A6) is not ported yet.
-SYMMETRY_WAITS = (
-    "device symmetry (packed_representative, symmetry_spec) waits for ROADMAP A6"
-)
 
 
 class IncrementState(NamedTuple):
@@ -89,7 +85,9 @@ class Increment(Model):
 class PackedIncrement(Increment):
     """The racy counter on the GPU engine (``spawn_xla``). Slot k is thread
     k's one enabled instruction: its program counter enables at most one
-    (increment.rs:158-169)."""
+    (increment.rs:158-169). Thread k's ``(t, pc)`` elements are block k of
+    the ``symmetry_spec``, whose canonicalization equals
+    :meth:`packed_representative` bit for bit."""
 
     def __init__(self, thread_count: int = 3):
         super().__init__(thread_count)
@@ -103,6 +101,10 @@ class PackedIncrement(Increment):
         )
         self.state_words = self._layout.words
         self.max_actions = n
+        if n >= 2:
+            self.symmetry_spec = SymmetrySpec.from_layout(
+                self._layout, ["t", "pc"], group="threads", name="increment"
+            )
 
     # --- host codec --------------------------------------------------------
 
@@ -146,12 +148,24 @@ class PackedIncrement(Increment):
         fin = sum((L.get(words, "pc", k) == 3).to(words.dtype) for k in range(self.thread_count))
         return (fin == L.get(words, "i"))[:, None]
 
-    def packed_representative(self, words):
-        raise NotImplementedError(SYMMETRY_WAITS)
+    def packed_representative(self, words: torch.Tensor) -> torch.Tensor:
+        """``[F, W]`` -> ``[F, W]``: the thread slice sorted by ``(t, pc)``
+        (stable), the packed form of :meth:`IncrementState.representative`."""
+        return sort_threads(self._layout, self.thread_count, words, pc_span=4)
 
-    @property
-    def symmetry_spec(self):
-        raise NotImplementedError(SYMMETRY_WAITS)
+
+def sort_threads(layout, n: int, words: torch.Tensor, pc_span: int) -> torch.Tensor:
+    """The ``t``/``pc`` array elements of every row in ``words[F, W]``
+    sorted by ``(t, pc)``, stably (``pc < pc_span``); a new tensor."""
+    t = torch.stack([layout.get(words, "t", k) for k in range(n)], 1)  # [F, n]
+    pc = torch.stack([layout.get(words, "pc", k) for k in range(n)], 1)
+    order = torch.argsort(t * pc_span + pc, dim=1, stable=True)
+    t, pc = t.gather(1, order), pc.gather(1, order)
+    out = words.clone()
+    for k in range(n):
+        layout.set_(out, "t", t[:, k], k)
+        layout.set_(out, "pc", pc[:, k], k)
+    return out
 
 
 def main(argv=None) -> None:

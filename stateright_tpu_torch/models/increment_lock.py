@@ -24,8 +24,9 @@ import torch
 
 from ..core import Model, Property
 from ..packing import LayoutBuilder, bits_for
+from ..sym import SymmetrySpec
 from ..utils.variant import variant
-from .increment import SYMMETRY_WAITS
+from .increment import sort_threads
 
 Proc = Tuple[int, int]  # (thread-local value t, program counter pc)
 
@@ -100,7 +101,10 @@ class IncrementLock(Model):
 class PackedIncrementLock(IncrementLock):
     """The lock-guarded counter on the GPU engine (``spawn_xla``). Slot k is
     thread k's one enabled instruction, by program counter: Lock (pc=0,
-    lock free), Read (1), Write (2), Release (3) (increment_lock.rs:61-73)."""
+    lock free), Read (1), Write (2), Release (3) (increment_lock.rs:61-73).
+    Thread k's ``(t, pc)`` elements are block k of the ``symmetry_spec``,
+    whose canonicalization equals :meth:`packed_representative` bit for
+    bit."""
 
     def __init__(self, thread_count: int = 3):
         super().__init__(thread_count)
@@ -115,6 +119,10 @@ class PackedIncrementLock(IncrementLock):
         )
         self.state_words = self._layout.words
         self.max_actions = n
+        if n >= 2:
+            self.symmetry_spec = SymmetrySpec.from_layout(
+                self._layout, ["t", "pc"], group="threads", name="increment-lock"
+            )
 
     def pack(self, state: IncrementLockState):
         return self._layout.pack(
@@ -163,12 +171,10 @@ class PackedIncrementLock(IncrementLock):
         crit = sum(((pc >= 1) & (pc < 4)).to(words.dtype) for pc in pcs)
         return torch.stack([fin == L.get(words, "i"), crit <= 1], 1)
 
-    def packed_representative(self, words):
-        raise NotImplementedError(SYMMETRY_WAITS)
-
-    @property
-    def symmetry_spec(self):
-        raise NotImplementedError(SYMMETRY_WAITS)
+    def packed_representative(self, words: torch.Tensor) -> torch.Tensor:
+        """``[F, W]`` -> ``[F, W]``: the thread slice sorted by ``(t, pc)``
+        (stable), the packed form of :meth:`IncrementLockState.representative`."""
+        return sort_threads(self._layout, self.thread_count, words, pc_span=8)
 
 
 def main(argv=None) -> None:

@@ -4,7 +4,9 @@ Counterpart of ``stateright_tpu/models/two_phase_commit.py``, with the same
 transition system as stateright's ``examples/2pc.rs``: a transaction manager
 and ``rm_count`` resource managers exchange messages through a shared
 message set. Known state-space sizes: 288 unique at rm=3, 1,568 at rm=4,
-8,832 at rm=5, 1,745,408 at rm=8.
+8,832 at rm=5, 1,745,408 at rm=8. Under the device symmetry (the RM blocks'
+full canonicalization) they reduce to 80, 166, 314 and 1,461 classes, and
+rm=14 to 12,323.
 
 Two implementations of the one system:
 
@@ -12,7 +14,8 @@ Two implementations of the one system:
   re-executed through it.
 - :class:`PackedTwoPhaseSys` — the GPU form: states bit-packed into two
   32-bit words, the action fan-out evaluated as a fixed ``2 + 5N`` slot
-  grid batched over the whole frontier, properties as packed predicates.
+  grid batched over the whole frontier, properties as packed predicates,
+  and the RM blocks declared as a ``symmetry_spec``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from ..core import Model, Property
 from ..ops.words import MASK32
+from ..sym import BlockGroup, SymmetrySpec
 
 # RmState encoding; order matches the reference's derive(Ord) declaration
 # order (2pc.rs:33-39).
@@ -174,6 +178,31 @@ class PackedTwoPhaseSys(TwoPhaseSys):
             raise ValueError("PackedTwoPhaseSys supports rm_count <= 14")
         super().__init__(rm_count)
         self.max_actions = 2 + 5 * rm_count
+        if rm_count >= 2:
+            # The device symmetry (``sym/``): RM block i is its rm_state
+            # dibit, its tm_prepared bit and its Prepared{i} message bit.
+            # All three lanes key the sort, so the spec's canonicalization
+            # is FULL (class-invariant), unlike the partial rm_state sort of
+            # :meth:`packed_representative`: rm=5 reduces to 314 classes on
+            # any traversal.
+            self.symmetry_spec = SymmetrySpec(
+                [
+                    BlockGroup(
+                        "rm",
+                        rm_count,
+                        (
+                            SymmetrySpec.lane("rm_state", 2, word=0, count=rm_count),
+                            SymmetrySpec.lane(
+                                "tm_prepared", 1, word=1, shift0=2, stride=1, count=rm_count
+                            ),
+                            SymmetrySpec.lane(
+                                "prepared_msg", 1, word=1, shift0=16, stride=1, count=rm_count
+                            ),
+                        ),
+                    )
+                ],
+                name="2pc-rm",
+            )
 
     # --- host-side codec --------------------------------------------------
 
@@ -278,3 +307,65 @@ class PackedTwoPhaseSys(TwoPhaseSys):
         all_committed = (rm_state == COMMITTED).all(1)
         consistent = ~((rm_state == ABORTED).any(1) & (rm_state == COMMITTED).any(1))
         return torch.stack([all_aborted, all_committed, consistent], 1)
+
+    def packed_representative(self, words: torch.Tensor) -> torch.Tensor:
+        """Canonical symmetry-class member of each packed state: ``[F, 2]
+        -> [F, 2]``. Sorts the RM slots by rm_state (stable), carrying the
+        tm_prepared and Prepared-message bits through the same permutation,
+        the packed form of :meth:`TwoPhaseState.representative`. A partial
+        canonicalization: the engine uses the full ``symmetry_spec`` when
+        the model has one."""
+        n = self.rm_count
+        w0, w1 = words[:, 0:1], words[:, 1:2]
+        rm_ids = torch.arange(n, device=words.device)
+        rm_state = (w0 >> (2 * rm_ids)) & 3  # [F, n]
+        order = torch.argsort(rm_state, dim=1, stable=True)
+        sorted_rm = rm_state.gather(1, order)
+        prepared_bits = (w1 >> (2 + order)) & 1
+        msg_bits = (w1 >> (16 + order)) & 1
+        new_w0 = (sorted_rm << (2 * rm_ids)).sum(1)
+        new_w1 = (
+            (w1[:, 0] & (0b11 | (1 << 30) | (1 << 31)))
+            | (prepared_bits << (2 + rm_ids)).sum(1)
+            | (msg_bits << (16 + rm_ids)).sum(1)
+        )
+        return torch.stack([new_w0, new_w1], 1)
+
+
+def main(argv=None) -> None:
+    """Command line in the manner of 2pc.rs:174-255. ``check`` runs the GPU
+    engine (``spawn_xla``, on the card); ``check-host`` runs the host DFS and
+    ``check-sym`` the host DFS with symmetry reduction (the object
+    ``representative()``). ``explore`` waits for the Explorer (ROADMAP
+    A10)."""
+    import sys
+
+    from ..report import WriteReporter
+
+    args = list(sys.argv[1:] if argv is None else argv)
+    cmd = args.pop(0) if args else None
+    rm_count = int(args.pop(0)) if cmd and args else 2
+    if cmd in ("check", "check-xla"):
+        print(f"Checking two phase commit with {rm_count} resource managers on the GPU.")
+        PackedTwoPhaseSys(rm_count).checker().spawn_xla().report(WriteReporter())
+    elif cmd == "check-host":
+        print(f"Checking two phase commit with {rm_count} resource managers.")
+        TwoPhaseSys(rm_count).checker().spawn_dfs().report(WriteReporter())
+    elif cmd == "check-sym":
+        print(
+            f"Checking two phase commit with {rm_count} resource managers "
+            f"using symmetry reduction."
+        )
+        TwoPhaseSys(rm_count).checker().symmetry().spawn_dfs().report(WriteReporter())
+    elif cmd == "explore":
+        raise NotImplementedError("explore waits for the Explorer (ROADMAP A10)")
+    else:
+        print("USAGE:")
+        print("  two-phase-commit check [RM_COUNT]        (GPU engine)")
+        print("  two-phase-commit check-host [RM_COUNT]   (sequential host DFS)")
+        print("  two-phase-commit check-sym [RM_COUNT]")
+        print("  two-phase-commit check-xla [RM_COUNT]    (alias of check)")
+
+
+if __name__ == "__main__":
+    main()

@@ -67,8 +67,19 @@ auto-checkpointer of ``checkpoint_to``) writes the committed state there in
 the reference's format (``checkpoint.py``), and ``checkpoint=`` resumes a
 file of either package. A visitor (``builder.visitor``) forces one level
 per dispatch and sees each frontier state's path before its level, up to
-``visit_cap`` a level. ``symmetry()`` is refused: the device symmetry of
-the reference is not ported yet.
+``visit_cap`` a level.
+
+Symmetry reduction (``sym/``): with ``symmetry()`` on the builder, or
+``spawn_xla(symmetry="on")`` / ``STPU_SYMMETRY``, the dedup key of every
+state is its canonical form, through the model's ``symmetry_spec`` (tag
+``spec:<hash12>``) or its ``packed_representative`` (tag
+``model:packed_representative``): the init rows, the frontier (whose
+fingerprints are the parents and discoveries) and the candidates are
+canonicalized right before fingerprinting, on the host path too
+(``_host_fps``). The next frontier keeps the original candidate rows, as
+the reference's does. The tag keys every program, stands in each
+``level_log`` row and in ``metrics()``, and is written into checkpoints,
+which resume only under the same tag.
 
 ## PackedModel protocol (batched form)
 
@@ -83,6 +94,8 @@ the reference is not ported yet.
 - ``packed_properties(words[F, W]) -> bool[F, P]``, ordered as
   ``properties()``.
 - ``pack(state) / unpack(words)`` — the host codec.
+- ``symmetry_spec`` (a ``sym.SymmetrySpec``) or ``packed_representative(
+  words[F, W]) -> [F, W]`` — optional, for symmetry reduction.
 """
 
 from __future__ import annotations
@@ -112,6 +125,7 @@ from .graphs import OVF, S
 from .ops import fphash, sortedset
 from .ops.compact import compact
 from .ops.words import DTYPE, from_u32, to_u32
+from .sym import SymmetryUnsupported, resolve_symmetry
 
 #: Counter names the engine keeps in ``metrics()``.
 ENGINE_COUNTERS = (
@@ -242,6 +256,7 @@ class XlaChecker(Checker):
         checkpoint_to: Optional[str] = None,
         checkpoint_every: Any = None,
         checkpoint_keep: Optional[int] = None,
+        symmetry: Any = None,
     ):
         model = builder._model
         missing = [attr for attr in PACKED_ATTRS if not hasattr(model, attr)]
@@ -250,11 +265,22 @@ class XlaChecker(Checker):
                 f"spawn_xla() requires the PackedModel protocol; "
                 f"{type(model).__name__} is missing {missing}"
             )
-        if builder._symmetry is not None:
-            raise NotImplementedError(
-                "spawn_xla() has no symmetry reduction yet (ROADMAP A6: the port of "
-                "stateright_tpu/sym); use spawn_bfs() or spawn_dfs(), which honour "
-                "symmetry(), or drop symmetry()"
+        # The spawn_xla(symmetry=) / STPU_SYMMETRY knob against the builder's
+        # request and the model's capability (sym/resolve.py).
+        sym = resolve_symmetry(symmetry, builder._symmetry is not None, model, engine="xla",
+                               store=graphs.graph_inputs(model))
+        self._sym_tag = sym.tag
+        self._sym_canon = sym.device_canon
+        self._sym_canon_host = sym.host_canon
+        if sym.enabled and getattr(model, "host_verified_properties", ()):
+            # The host re-checks concrete candidate states, and a reduced
+            # frontier holds one member per class: an asymmetric property
+            # could miss its witness.
+            raise SymmetryUnsupported(
+                "xla",
+                f"{type(model).__name__} declares host_verified_properties; "
+                f"the host-verified fallback evaluates concrete states and "
+                f"cannot honor a symmetry-reduced frontier",
             )
         if shrink_exit not in ("auto", "on", "off"):
             raise ValueError(f"shrink_exit must be 'auto', 'on', or 'off': {shrink_exit!r}")
@@ -368,7 +394,7 @@ class XlaChecker(Checker):
         init_rows = from_u32(init_packed.reshape(n_init, self._W), dev)
         # Init fingerprints go in with a zero parent (the "no predecessor"
         # marker, bfs.rs:59-65).
-        ihi, ilo = fphash.fingerprint_words(init_rows)
+        ihi, ilo = self._fingerprint_rows(init_rows)
         zeros = torch.zeros(n_init, dtype=DTYPE, device=dev)
         self._table, is_new, ovf = sortedset.insert(
             sortedset.make(table_capacity, dev), ihi, ilo, zeros, zeros,
@@ -411,7 +437,7 @@ class XlaChecker(Checker):
         ck = load_checkpoint(path)
         meta = ck.pop("meta")
         validate_model(meta, self._model, self._prop_names)
-        validate_symmetry(meta, None)
+        validate_symmetry(meta, self._sym_tag)
         state = state_from_checkpoint(ck, meta, self._device, table_capacity)
         self._table = state["table"]
         self._frontier = state["frontier"]
@@ -436,6 +462,17 @@ class XlaChecker(Checker):
         return to_u32(self._frontier[: self._frontier_count])
 
     # --- the superstep ------------------------------------------------------
+
+    def _fingerprint_planes(self, planes: torch.Tensor):
+        """Fingerprints of the dedup keys of ``[W, N]`` plane-major states:
+        their canonical forms under symmetry, else the states."""
+        if self._sym_canon is not None:
+            planes = self._sym_canon(planes)
+        return fphash.fingerprint_planes(planes)
+
+    def _fingerprint_rows(self, rows: torch.Tensor):
+        """:meth:`_fingerprint_planes` of ``[N, W]`` rows."""
+        return self._fingerprint_planes(rows.T)
 
     def _pin(self, viol, fhi, flo, i, disc_found, disc_fp) -> None:
         """First-witness election for property ``i``: the lowest frontier
@@ -480,7 +517,7 @@ class XlaChecker(Checker):
         model = self._model
         disc_found, disc_fp = disc_found.clone(), disc_fp.clone()
         f_valid = torch.arange(f_cap, device=dev) < f_count
-        fhi, flo = fphash.fingerprint_words(frontier)
+        fhi, flo = self._fingerprint_rows(frontier)
 
         # Properties over the frontier.
         props = model.packed_properties(frontier)  # [F, P]
@@ -519,7 +556,7 @@ class XlaChecker(Checker):
         cvalid = torch.arange(cand_cap, device=dev) < n_valid
         grid_out = torch.where(cvalid, grid_out, 0)  # unspecified past n_valid
         ccand, cpar_hi, cpar_lo, cebits = grid_out[:W], grid_out[W], grid_out[W + 1], grid_out[W + 2]
-        chi, clo = fphash.fingerprint_planes(ccand)
+        chi, clo = self._fingerprint_planes(ccand)
 
         # Dedup against the visited set.
         table, is_new, table_overflow = sortedset.insert(
@@ -835,6 +872,7 @@ class XlaChecker(Checker):
             "frontier": self._frontier_count,
             "generated": d_states,
             "unique": d_unique,
+            "sym": self._sym_tag,
             "bucket": run_cap,
             "cand_cap": cand_cap,
         })
@@ -856,10 +894,12 @@ class XlaChecker(Checker):
 
     # --- the fused block --------------------------------------------------------
 
-    def _tail(self, table_capacity: Optional[int] = None) -> Tuple[int, int, int]:
-        """The program-key tail of this checker's shapes: table capacity,
-        levels per dispatch and host-verified cap."""
-        return (table_capacity or self._table.capacity, self._levels_per_dispatch, self._hv_cap)
+    def _tail(self, table_capacity: Optional[int] = None) -> Tuple[int, int, int, Optional[str]]:
+        """The program-key tail of this checker: table capacity, levels per
+        dispatch, host-verified cap and symmetry tag (a graph bakes in
+        whether its level canonicalizes)."""
+        return (table_capacity or self._table.capacity, self._levels_per_dispatch, self._hv_cap,
+                self._sym_tag)
 
     def _program_run_caps(self, table_capacity: Optional[int] = None) -> set:
         """Run buckets with a program for every rung of this checker's
@@ -902,7 +942,7 @@ class XlaChecker(Checker):
         """After a table growth: the programs of every bucket that had them
         at the old capacity, made anew at the current one."""
         run_caps = sorted(self._program_run_caps(old_capacity))
-        self._programs.drop(old_capacity, self._levels_per_dispatch)
+        self._programs.drop(self._tail(old_capacity)[:3])
         for run_cap in run_caps:
             self._programs_for(run_cap)
 
@@ -1011,6 +1051,7 @@ class XlaChecker(Checker):
                     "frontier": int(lvl[0, i]),
                     "generated": int(lvl[1, i]),
                     "unique": int(lvl[2, i]),
+                    "sym": self._sym_tag,
                     "bucket": int(lvl[3, i]),
                     "cand_cap": int(lvl[4, i]),
                 }
@@ -1156,6 +1197,7 @@ class XlaChecker(Checker):
             "levels_committed": sum(c for _, c in self.dispatch_log),
             "levels_per_dispatch": self._levels_per_dispatch,
             "shrink_exit": self._shrink_exit,
+            "symmetry": self._sym_tag,
             "cand_ladder_k": self._cand_ladder_k,
             "cand_retries": self.cand_retries,
             "hv": dict(self.hv_stats),
@@ -1182,11 +1224,10 @@ class XlaChecker(Checker):
                 RuntimeWarning,
                 stacklevel=2,
             )
-        rows = self._frontier[: min(n, self._visit_cap)].cpu()
-        hi, lo = fphash.fingerprint_words(rows)
+        rows = to_u32(self._frontier[: min(n, self._visit_cap)])
         parents = self._parent_map()
-        for h, l in zip(hi.tolist(), lo.tolist()):
-            self._visitor.visit(self._model, self._path_for((h << 32) | l, parents))
+        for fp in self._row_fps(rows):
+            self._visitor.visit(self._model, self._path_for(fp, parents))
 
     def discoveries(self) -> Dict[str, Path]:
         parents = self._parent_map()
@@ -1208,9 +1249,25 @@ class XlaChecker(Checker):
         return u64(t.key_hi, t.key_lo), u64(t.val_hi, t.val_lo)
 
     def _host_fps(self, states: List[Any]) -> List[int]:
-        """Fingerprints of object states through the packed codec: one
-        batched call, on the host."""
-        rows = np.stack([np.asarray(self._model.pack(s), dtype=np.uint32) for s in states])
+        """Fingerprints of object states through the packed codec, as the
+        device computes them (:meth:`_row_fps`)."""
+        return self._row_fps(
+            np.stack([np.asarray(self._model.pack(s), dtype=np.uint32) for s in states]))
+
+    def _row_fps(self, rows: np.ndarray) -> List[int]:
+        """64-bit fingerprints of the dedup keys of host ``[N, W]`` uint32
+        rows: one batched call, on the host. Under symmetry the key is the
+        canonical form, by the spec's host twin or, on the
+        ``packed_representative`` path, by the object ``representative()``
+        (the reference's ``_dedup_words_host``)."""
+        if self._sym_canon_host is not None:
+            rows = np.stack([self._sym_canon_host(row) for row in rows])
+        elif self._sym_canon is not None:
+            model = self._model
+            rows = np.stack([
+                np.asarray(model.pack(model.unpack(row).representative()), dtype=np.uint32)
+                for row in rows
+            ])
         hi, lo = fphash.fingerprint_words(from_u32(rows, "cpu"))
         return [(h << 32) | l for h, l in zip(hi.tolist(), lo.tolist())]
 

@@ -10,8 +10,8 @@ path, against the reference package's on the CPU:
 - ``ParallelBfsChecker``/``ParallelDfsChecker`` at ``threads(2)`` give the
   reference's counts and discoveries on 2pc rm=4 and Paxos 2c/3s;
 - ``spawn_xla(device="cpu")`` with a visitor records the reference's
-  ``spawn_xla`` visitor paths, one level per dispatch, and refuses
-  ``symmetry()`` until the device symmetry is ported.
+  ``spawn_xla`` visitor paths, one level per dispatch, and with
+  ``symmetry()`` reduces to the reference's class count.
 
 Everything is exact (integer work)."""
 
@@ -340,8 +340,16 @@ def test_spawn_xla_visit_cap_warns_and_cuts():
 
 
 def test_spawn_xla_refuses_symmetry():
-    with pytest.raises(NotImplementedError, match="A6"):
-        port_2pc.PackedTwoPhaseSys(3).checker().symmetry().spawn_xla(**CPU)
+    """``symmetry()`` on the builder reaches the GPU engine: rm=3 reduces to
+    the reference's 80 classes, level by level. (The name is kept from
+    when this test pinned the engine's refusal of symmetry.)"""
+    got = port_2pc.PackedTwoPhaseSys(3).checker().symmetry().spawn_xla(**CPU).join()
+    want = ref_2pc.PackedTwoPhaseSys(3).checker().symmetry().spawn_xla(dedup="sorted").join()
+    assert got.unique_state_count() == want.unique_state_count() == 80
+    assert got.state_count() == want.state_count()
+    keys = ("depth", "frontier", "generated", "unique", "sym")
+    assert [[r[k] for k in keys] for r in got.level_log] == [
+        [r[k] for k in keys] for r in want.level_log]
 
 
 def test_packed_dgraph_on_the_engine_equals_the_host_bfs():

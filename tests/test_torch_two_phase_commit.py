@@ -1,7 +1,10 @@
 """The port's batched 2pc kernels (stateright_tpu_torch/models/
 two_phase_commit.py) against ``jax.vmap`` of the reference package's
 per-state ones, on every reachable state at rm=3..5: exact comparison,
-tolerance 0. Plus the host codec and the object model."""
+tolerance 0. Plus the host codec, the object model and the command line's
+host subcommands."""
+
+import re
 
 import jax
 import numpy as np
@@ -58,3 +61,31 @@ def test_codec_and_object_model_match_reference():
         ]
         state = steps[len(steps) // 2][1]
         assert pmodel.unpack(pmodel.pack(state)) == state
+
+
+def _done_lines(out: str):
+    """The report's ``Done.`` lines, less their wall seconds."""
+    return [re.sub(r", sec=\S+", "", line) for line in out.splitlines() if line.startswith("Done.")]
+
+
+@pytest.mark.parametrize("cmd", ["check-sym", "check-host"])
+def test_command_line_equals_the_references(cmd, capsys):
+    port.main([cmd, "3"])
+    got = capsys.readouterr().out
+    ref.main([cmd, "3"])
+    want = capsys.readouterr().out
+    assert len(_done_lines(got)) == 1
+    assert _done_lines(got) == _done_lines(want)
+    assert got.splitlines()[0] == want.splitlines()[0]
+
+
+def test_command_line_usage_and_explore():
+    import io
+    from contextlib import redirect_stdout
+
+    out = io.StringIO()
+    with redirect_stdout(out):
+        port.main([])
+    assert "USAGE:" in out.getvalue() and "check-sym" in out.getvalue()
+    with pytest.raises(NotImplementedError, match="A10"):
+        port.main(["explore"])
