@@ -143,6 +143,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
 from stateright_tpu_torch import PathRecorder, graphs
+from stateright_tpu_torch.audit import audit_table
 from stateright_tpu_torch.checkpoint import (
     PAYLOAD_KEYS,
     checkpoint_arrays,
@@ -164,7 +165,7 @@ from stateright_tpu_torch.models.single_copy_register import (
 )
 from stateright_tpu_torch.core import Property
 from stateright_tpu_torch.models.two_phase_commit import PackedTwoPhaseSys
-from stateright_tpu_torch.ops import _cuda
+from stateright_tpu_torch.ops import _cuda, deltaset, hashset, sortedset
 from stateright_tpu_torch.ops.compact import compact, compact_plain
 from stateright_tpu_torch.ops.merge import merge_insert, merge_insert_plain
 from stateright_tpu_torch.ops.words import DTYPE, from_u32
@@ -224,7 +225,14 @@ COMPACT_SYMBOL = "compact_kernel"
 MERGE_SYMBOL = "merge_kernel"
 
 
+#: The script's start on the host clock: each phase line carries its
+#: seconds since (``t_s``).
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -311,6 +319,32 @@ def rungs(c) -> list:
 def zero_launches() -> None:
     compact.launches = 0
     merge_insert.launches = 0
+    hashset.insert_.launches = 0
+    hashset.undo_.launches = 0
+
+
+#: The kernels of each visited-set structure's path, by the names of the
+#: ``kernels`` line.
+PATH_KERNELS = {
+    "sorted": ("compact", "merge_insert"),
+    "delta": ("compact", "merge_insert"),
+    "hash": ("compact", "hashset_insert", "hashset_undo"),
+}
+
+
+def launches_now(dedup: str = "sorted") -> dict:
+    """The launch counters of the kernels of ``dedup``'s path."""
+    counts = {"compact": compact.launches, "merge_insert": merge_insert.launches,
+              "hashset_insert": hashset.insert_.launches, "hashset_undo": hashset.undo_.launches}
+    return {k: counts[k] for k in PATH_KERNELS[dedup]}
+
+
+def audited(c, what: str) -> dict:
+    """The host audit of ``c``'s visited set (``audit.audit_table``): no key
+    twice and one entry per unique state, or the run fails."""
+    report = audit_table(c)
+    require(report["ok"], f"{what}: visited-set audit {report}")
+    return report
 
 
 def drive(model, depth=None, sym: bool = False, **kw):
@@ -328,7 +362,7 @@ def drive(model, depth=None, sym: bool = False, **kw):
     c = builder.spawn_xla(**kw).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return c, wall, {"compact": compact.launches, "merge_insert": merge_insert.launches}
+    return c, wall, launches_now(kw.get("dedup", "sorted"))
 
 
 def check_rm8(c, launches: dict, what: str) -> dict:
@@ -355,6 +389,7 @@ def check_rm8(c, launches: dict, what: str) -> dict:
         "grows": {k: m[k] for k in ("table_grows", "frontier_grows", "cand_grows")},
         "discoveries": {k: len(p) for k, p in found.items()},
         "paths_s": time.perf_counter() - t1,
+        "audit": audited(c, what),
     }
 
 
@@ -550,6 +585,7 @@ def paxos_small_phase() -> None:
             "paxos 2c/3s per-level counts, card vs CPU")
     emit({"phase": "paxos_small", "clients": 2, "servers": 3, "generated": counts[0],
           "unique": counts[1], "levels": len(gpu.level_log), "cold_wall_s": wall,
+          "audit": audited(gpu, "paxos 2c/3s"),
           "launches": launches, "dispatch_log": gpu.dispatch_log,
           "graph_captures": gpu.metrics()["graph_captures"],
           "capture_s": gpu.metrics()["graph_capture_s"], "witness_actions": len(witness),
@@ -740,6 +776,7 @@ def paxos3_phase():
                          "reserved_after_cold": reserved},
         "peak_mem_gib_by_bucket": bucket_peaks,
         "launches": {"cold": cold_launches, "warm": warm_launches},
+        "audit": {"cold": audited(cold, "paxos 3c/3s cold"), "warm": audited(warm, "paxos 3c/3s warm")},
         "witness_actions": len(witness), "paths_s": paths_s,
         "single": {"wall_s": single_wall, "dispatches": len(single.dispatch_log),
                    "levels_equal_fused": True},
@@ -831,6 +868,17 @@ def device_ops(fn, symbol: str, calls: int = 5, windows: int = 5) -> dict:
                 for e in seen
             }
     return {}
+
+
+def ops_split(ops: dict, symbol: str) -> dict:
+    """A call's device time from :func:`device_ops`: the kernel ``symbol``'s
+    ms, the rest's, and the rest by operation ("not measured" if no
+    profiled window counted)."""
+    if not ops:
+        return {"kernel_ms": "not measured", "rest_ms": "not measured", "rest_ops": {}}
+    rest = {k: op["ms"] * op["per_call"] for k, op in ops.items() if symbol not in k}
+    return {"kernel_ms": sum(op["ms"] * op["per_call"] for k, op in ops.items() if symbol in k),
+            "rest_ms": sum(rest.values()), "rest_ops": rest}
 
 
 def kernel_timing(kernel, plain, library, n_bytes: int, symbol: str) -> dict:
@@ -1375,10 +1423,6 @@ RM5_SAVE_DEPTH = 6
 PAXOS3_SAVE_DEPTH = 8
 
 
-def launches_now() -> dict:
-    return {"compact": compact.launches, "merge_insert": merge_insert.launches}
-
-
 def run_to_depth(model, depth: int, **kw):
     """A search of ``model`` stopped with the frontier at ``depth`` intact:
     ``target_max_depth`` bounds each block's level budget, and the loop stops
@@ -1651,6 +1695,7 @@ def abd_phase():
         check_paths(c)
         out[f"2c2s_{net}"] = {"generated": counts[0], "unique": counts[1], "max_depth": counts[2],
                               "cold_wall_s": wall, "launches": launches[f"abd2_{net}"],
+                              "audit": audited(c, f"abd 2c/2s {net}"),
                               "graph_captures": c.metrics()["graph_captures"]}
     shapes = None
     for net in ("unordered", "ordered"):
@@ -1697,6 +1742,8 @@ def abd_phase():
             "peak_mem_gib": {"cold": cold_peak, "reserved_after_cold": torch.cuda.memory_reserved() / 2**30},
             "widest_level": {k: widest[k] for k in LEVEL_KEYS},
             "launches": {"cold": cold_launches, "warm": warm_launches},
+            "audit": {"cold": audited(cold, f"abd 3c/2s {net} cold"),
+                      "warm": audited(warm, f"abd 3c/2s {net} warm")},
             "discoveries": {k: len(p) for k, p in cold.discoveries().items()}, "paths_s": paths_s,
             "cpu_depth_cut": {"depth": depth, "card_equals_cpu": True, "cpu_wall_s": cpu_wall,
                               "generated": cpu.state_count(), "unique": cpu.unique_state_count()},
@@ -1854,7 +1901,7 @@ def sym_line(c, what: str, launches: dict, wall: float) -> dict:
         "dispatch_log": c.dispatch_log, "graph_captures": m["graph_captures"],
         "capture_s": m["graph_capture_s"], "dead_replays": m["dead_replays"],
         "cand_retries": m["cand_retries"], "symmetry": tag, "launches": launches,
-        "discoveries": {k: len(p) for k, p in found.items()},
+        "discoveries": {k: len(p) for k, p in found.items()}, "audit": audited(c, what),
     }
 
 
@@ -2052,6 +2099,517 @@ def symmetry_phase(rng) -> dict:
     return launches, shapes
 
 
+# --- the hash and delta visited sets (spawn_xla(dedup=)) -------------------------
+
+#: The soak configuration: 2pc at one resource manager past the flagship.
+#: ``bench.py`` pins no count past rm=8, so the three structures are held
+#: against each other.
+SOAK_RM = 9
+#: The hash kernel's first launch of an insert, as the profiler names it.
+HASH_SYMBOL = "claim_kernel"
+#: The table the hash kernel is held against its plain version in: 2^26
+#: slots, the hash set's capacity at rm=9 (at most a quarter full).
+HASH_TABLE = 1 << 26
+#: The share of the rm=8 search a checkpoint leaves for the CPU to finish
+#: (the port's CPU engine runs some ten thousand states a second).
+CPU_TAIL_SHARE = 0.01
+
+
+def dedup_line(c, wall: float, launches: dict, dedup: str, what: str, audit: bool = True) -> dict:
+    """Checks of one run under ``dedup``: the structure in ``metrics()``,
+    every kernel of its path launched and (with ``audit``) a clean audit;
+    its line."""
+    m = c.metrics()
+    require(m["dedup"] == dedup, f"{what}: metrics dedup {m['dedup']}")
+    require(all(launches[k] > 0 for k in PATH_KERNELS[dedup]), f"{what}: kernel launches {launches}")
+    gen = c.state_count()
+    return {
+        "generated": gen, "unique": c.unique_state_count(), "max_depth": c.max_depth(),
+        "wall_s": wall, "states_per_s": gen / wall, "levels": len(c.level_log),
+        "dispatches": m["dispatches"], "graph_captures": m["graph_captures"],
+        "capture_s": m["graph_capture_s"], "cand_ladder_k": m["cand_ladder_k"],
+        "table_capacity": m["table_capacity"], "table_grows": m["table_grows"],
+        "delta_flushes": m["delta_flushes"], "launches": launches,
+        **({"audit": audited(c, what)} if audit else {}),
+    }
+
+
+def _lanes_of(keys: torch.Tensor, gen, active=None):
+    """Batch lanes on the card for int64 ``(hi << 32) | lo`` keys, with
+    random values: ``[hi, lo, val_hi, val_lo, active]`` (all active unless
+    given)."""
+    vals = torch.randint(0, 2**32, (2, keys.shape[0]), dtype=DTYPE, device="cuda", generator=gen)
+    if active is None:
+        active = torch.ones(keys.shape[0], dtype=torch.bool, device="cuda")
+    return [(keys >> 32) & M32, keys & M32, vals[0], vals[1], active]
+
+
+def _batch_lanes(gen, m: int, n_valid: int, hit: float, table_keys: torch.Tensor):
+    """``m`` candidate lanes made on the card, ``n_valid`` of them active, in
+    random order: a share ``hit`` of keys drawn from ``table_keys`` (int64
+    ``(hi << 32) | lo``), the rest fresh keys with in-batch duplicates (each
+    drawn about four times)."""
+    n_hit = int(n_valid * hit) if table_keys.numel() else 0
+    n_fresh = max(1, (n_valid - n_hit) // 4)
+    fresh = torch.randint(1, 2**62, (n_fresh,), dtype=DTYPE, device="cuda", generator=gen)
+    pick = lambda pool, n: pool[torch.randint(0, pool.numel(), (n,), device="cuda", generator=gen)]
+    keys = torch.cat([pick(table_keys, n_hit) if n_hit else fresh[:0], pick(fresh, n_valid - n_hit),
+                      torch.ones(m - n_valid, dtype=DTYPE, device="cuda")])
+    order = torch.randperm(m, device="cuda", generator=gen)
+    return _lanes_of(keys[order], gen, order < n_valid)
+
+
+def _table_pairs(hs) -> torch.Tensor:
+    """A hash set's ``[2, C]`` (key, value) words sorted by key, on the card:
+    equal for two sets that hold the same pairs, wherever they lie."""
+    key, order = torch.sort(hs.key)
+    return torch.stack([key, hs.val[order]])
+
+
+def check_hash(name: str, hs, lanes, reps: int = 1, layout: bool = False) -> dict:
+    """The kernel (``reps`` calls, each on a fresh copy of ``hs``) against
+    the plain version on a copy of its own: ``is_new`` and ``overflow``
+    equal bitwise, the stored (key, value) pairs equal as a set (and, with
+    ``layout``, the planes bit for bit: the kernel's exact path runs the
+    reference's rounds), the ticket plane back at rest."""
+    want = hashset.HashSet(hs.key.clone(), hs.val.clone(), hs.ticket.clone())
+    w_new, w_ovf, _ = hashset.insert_plain(want, *lanes)
+    want_pairs = _table_pairs(want)
+    err = 0
+    for _ in range(reps):
+        got = hashset.HashSet(hs.key.clone(), hs.val.clone(), hs.ticket.clone())
+        g_new, g_ovf, _ = hashset.insert_(got, *lanes)
+        torch.cuda.synchronize()
+        require(torch.equal(g_new, w_new), f"hash {name}: is_new")
+        require(torch.equal(g_ovf, w_ovf), f"hash {name}: overflow")
+        require(bool((got.ticket == hashset.NO_TICKET).all()), f"hash {name}: tickets at rest")
+        if not bool(w_ovf.any()):
+            err = max(err, int((_table_pairs(got) != want_pairs).sum()))
+        if layout:
+            require(torch.equal(got.key, want.key) and torch.equal(got.val, want.val),
+                    f"hash {name}: planes")
+        require(err == 0, f"hash {name}: stored pairs differ")
+        del got
+    return {"C": hs.capacity, "m": lanes[0].shape[0], "active": int(lanes[4].sum()),
+            "new": int(w_new.sum()), "overflowed": int(w_ovf.sum()), "reps": reps,
+            "layout_equal": layout, "max_abs_err": err}
+
+
+def hash_bytes(lanes, n_new: int) -> int:
+    """Bytes an insert must move: ``active`` read and ``is_new`` and
+    ``overflow`` written for every lane; an active lane's two key words and
+    one 32-byte sector of the table; a new key's two value words read and
+    its key and value written. An inactive lane reads nothing more, and
+    only a winner reads its value."""
+    m = lanes[0].shape[0]
+    return m * 3 + int(lanes[4].sum()) * (16 + 32) + n_new * (16 + 16)
+
+
+def hash_kernel_phase(seed: int, m: int, n_valid: int):
+    """``csrc/hashset.cu`` against its plain versions on the card: a batch
+    of ``m`` lanes (rm=9's widest candidate buffer, ``n_valid`` of them
+    active) into a 2^26-slot table an eighth full, 5 calls on fresh copies,
+    each undone (``undo_``, a level not committed) back to the table bit for
+    bit; then adversarial batches: every row one key; 100 distinct keys on
+    one home slot, more than ``max_probes`` (the kernel's exact path, planes
+    bit for bit); 4,096 keys on distinct slots that share one claim-buffer
+    index (the reference's rounds elect one a round); a batch whose keys are
+    all present; one row; no active row. Times the seeded case's insert and
+    its undo. Returns the lines of both."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = hashset.make(HASH_TABLE, "cuda")
+    n0 = HASH_TABLE // 8
+    base_keys = torch.randint(1, 2**62, (n0,), dtype=DTYPE, device="cuda", generator=gen)
+    _, ovf, _ = hashset.insert_(base, *_lanes_of(base_keys, gen))
+    require(not bool(ovf.any()), "hash: the base table overflowed")
+    lanes = _batch_lanes(gen, m, n_valid, 0.4, base_keys)
+    cases = {"rm9_widest": check_hash("rm9_widest", base, lanes, reps=5)}
+    small = hashset.make(1 << 12, "cuda")
+    k = torch.arange(4096, dtype=DTYPE, device="cuda")
+    adversarial = {  # lo = 0: a key's home slot is hi mod C
+        "one_key": (base, torch.full((1 << 20,), 0x123456789, dtype=DTYPE, device="cuda"), False),
+        "one_home_slot": (small, ((k[:100] << 12) | 5) << 32, True),
+        "claim_index": (base, (k * 8192 + 5) << 32, False),
+        "all_present": (base, base_keys[: 1 << 20], False),
+        "one_row": (base, torch.full((1,), 0x2468ACE, dtype=DTYPE, device="cuda"), False),
+    }
+    for name, (table, keys, layout) in adversarial.items():
+        cases[name] = check_hash(name, table, _lanes_of(keys, gen), layout=layout)
+    none = lanes[:4] + [torch.zeros(m, dtype=torch.bool, device="cuda")]
+    cases["no_active_row"] = check_hash("no_active_row", base, none)
+    require(cases["one_home_slot"]["overflowed"] == 100 - 32, "hash: one home slot past the budget")
+    require(cases["claim_index"]["new"] == 4096 and cases["one_key"]["new"] == 1
+            and cases["all_present"]["new"] == 0, f"hash: adversarial counts {cases}")
+    # Timing: every timed insert goes into a fresh copy of the base table;
+    # every timed undo drops one such insert.
+    fresh = lambda: hashset.HashSet(base.key.clone(), base.val.clone(), base.ticket.clone())
+    copies = [fresh() for _ in range(7)]
+    turn = iter(copies)
+    ms = timed_ms(lambda: hashset.insert_(next(turn), *lanes), reps=5, queued=True)
+    plain_copies = iter([fresh() for _ in range(3)])
+    plain_ms = timed_ms(lambda: hashset.insert_plain(next(plain_copies), *lanes), reps=1)
+    del plain_copies, copies, turn
+    done = [(c, *hashset.insert_(c, *lanes)) for c in (fresh() for _ in range(5))]
+    drop = torch.zeros((), dtype=torch.bool, device="cuda")
+    undo_err = 0
+    for c, is_new, _, slot in done[:2]:
+        kept = [p.clone() for p in c]
+        hashset.undo_(c, slot, is_new, ~drop)
+        undo_err += sum(int((a != b).sum()) for a, b in zip(c, kept))
+        want = hashset.HashSet(*(p.clone() for p in c))
+        hashset.undo_plain(want, slot, is_new, drop)
+        hashset.undo_(c, slot, is_new, drop)
+        undo_err += sum(int((a != b).sum()) for a, b in zip(c, want))
+        undo_err += sum(int((a != b).sum()) for a, b in zip(c, base))
+    require(undo_err == 0, "hash: an undo left the table other than the base")
+    turn = iter(done[2:])
+
+    def undo_next():
+        c, is_new, _, slot = next(turn)
+        hashset.undo_(c, slot, is_new, drop)
+
+    undo_ms = timed_ms(undo_next, reps=1, queued=True)
+    del done, turn
+    plain_done = iter([(c, *hashset.insert_(c, *lanes)) for c in (fresh(), fresh(), fresh())])
+
+    def plain_undo_next():
+        c, is_new, _, slot = next(plain_done)
+        hashset.undo_plain(c, slot, is_new, drop)
+
+    undo_plain_ms = timed_ms(plain_undo_next, reps=1)
+    del plain_done
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops = device_ops(lambda: hashset.insert_(base, *lanes), HASH_SYMBOL)
+    n_new = cases["rm9_widest"]["new"]
+    insert_line = {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "library_call": "none: no single PyTorch call inserts into a hash table",
+        "bound_ms": bound_ms(hash_bytes(lanes, n_new)), "bound_by": "bytes",
+        "device_launches_per_call": sum(op["per_call"] for op in ops.values()) if ops else "not measured",
+        "device_ops": ops, "C": HASH_TABLE, "m": m, "active": n_valid, "new": n_new,
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+    }
+    undo_line = {
+        # The bound: is_new read once, each winner's slot read and its two
+        # words written once.
+        "ms": undo_ms, "plain_ms": undo_plain_ms, "library_ms": None,
+        "library_call": "none: index_add_ of the negated words would serialize on one slot",
+        "bound_ms": bound_ms(m + 24 * n_new), "bound_by": "bytes", "C": HASH_TABLE, "m": m,
+        "dropped": n_new, "max_abs_err": undo_err,
+    }
+    emit({"phase": "hashset_kernel", "cases": cases, **insert_line, "undo": undo_line})
+    del base, small, lanes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return insert_line, undo_line
+
+
+def level_batch(model, dedup: str, c):
+    """The visited-set insert of ``c``'s widest level (by generated states)
+    as the engine makes it: ``model`` (the instance that ran ``c``, so no
+    graph is captured) searched again under ``dedup`` to that level's depth
+    and the level run once eagerly, the insert's arguments kept: the table
+    before the level and the lanes ``[hi, lo, val_hi, val_lo, active]``,
+    as wide as the level's candidate buffer.
+    Checks that the batch is that level's (its active lanes and new keys
+    are the level's generated and unique counts). Returns the table, the
+    lanes, ``is_new`` and the level's ``level_log`` row."""
+    widest = max(c.level_log, key=lambda r: r["generated"])
+    run = run_to_depth(model, widest["depth"], dedup=dedup)
+    # One level more, at the bucket and candidate cap the level ran at.
+    run._target_max_depth = None
+    run._run_cap_for = lambda n: widest["bucket"]
+    run._cand_caps[widest["bucket"]] = widest["cand_cap"]
+    kept, insert = [], run._insert
+
+    def spy(table, *lanes, in_place=False):
+        out = insert(table, *lanes, in_place=in_place)
+        kept[:] = [table, list(lanes), out[1]]
+        return out
+
+    run._insert = spy
+    run._run_block_single()
+    table, lanes, is_new = kept
+    require(int(lanes[4].sum()) == widest["generated"] and int(is_new.sum()) == widest["unique"]
+            and run.level_log[-1]["depth"] == widest["depth"], f"{dedup}: the widest level's batch")
+    return table, lanes, is_new, widest
+
+
+def batch_mix(lanes, is_new) -> dict:
+    """A batch's lanes by kind: active, new keys (one winner each), hits (a
+    key already in the table) and in-batch duplicates of a new key."""
+    keys = (lanes[0] << 32) | lanes[1]
+    active = keys[lanes[4]]
+    of_new = int(torch.isin(active, keys[is_new]).sum())
+    n_new = int(is_new.sum())
+    return {"m": keys.shape[0], "active": active.shape[0], "new": n_new,
+            "hits": active.shape[0] - of_new, "duplicates": of_new - n_new}
+
+
+def table_step_ms(model, dedup: str, c) -> dict:
+    """The visited-set step of ``c``'s widest level, device time alone, on
+    that level's own batch and table (:func:`level_batch`): the sorted and
+    delta sets' insert and the gate's copy of the planes it made anew, the
+    hash set's insert in place and its undo. Each call leaves the table as
+    it found it (a closed gate). Under hash, also the insert alone with its
+    bound, and the kernel against its plain version on that batch."""
+    t, lanes, is_new, widest = level_batch(model, dedup, c)
+    keep = torch.zeros((), dtype=torch.bool, device="cuda")
+    extra = {}
+    if dedup == "hash":
+        def step():
+            new, _, slot = hashset.insert_(t, *lanes, c._max_probes)
+            hashset.undo_(t, slot, new, keep)
+
+        # The insert alone: each timed call into a fresh copy of the table.
+        copies = iter([hashset.HashSet(t.key.clone(), t.val.clone(), t.ticket) for _ in range(7)])
+        extra = {"kernel": check_hash("widest_level", t, lanes),
+                 "insert_ms": timed_ms(lambda: hashset.insert_(next(copies), *lanes, c._max_probes),
+                                       reps=5, queued=True),
+                 "insert_bound_ms": bound_ms(hash_bytes(lanes, int(is_new.sum())))}
+        del copies
+    else:
+        def step():
+            nt, _, _ = c._ds.insert(t, *lanes)
+            for new, old in zip(nt, t):
+                if new is not old:
+                    old.copy_(torch.where(keep, new, old))
+    before = [p.clone() for p in t]
+    ms = timed_ms(step, reps=10, queued=True)
+    require(all(torch.equal(a, b) for a, b in zip(t, before)), f"{dedup}: a closed gate moved the table")
+    del before
+    rows = getattr(t, "delta_capacity", t.capacity)
+    line = {"ms": ms, "depth": widest["depth"], "batch": batch_mix(lanes, is_new),
+            "table_rows": rows, "capacity": getattr(t, "main_capacity", t.capacity), **extra}
+    del t, lanes, is_new
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def soak_phase():
+    """2pc rm=9 under the sorted, hash and delta sets, each cold and then
+    warm on one model instance (the warm run capturing nothing): the three
+    agree in counts, depth and every level, each audit is clean and both
+    discoveries are re-executed; peak memory, each structure's table step
+    on its widest level's own batch (:func:`table_step_ms`), the flush at
+    the delta set's final table with its device time by operation. Returns
+    the runs' launches, the delta run's shapes and the widest candidate
+    buffer."""
+    out, launches, ref = {}, {}, None
+    for dedup in ("sorted", "hash", "delta"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = PackedTwoPhaseSys(SOAK_RM)
+        torch.cuda.reset_peak_memory_stats()
+        PROGRAM_USE.segment = f"soak_{dedup}_cold"
+        cold, cold_wall, launches[f"dedup_{dedup}_rm9"] = drive(model, dedup=dedup)
+        cold_peak = torch.cuda.max_memory_allocated() / 2**30
+        PROGRAM_USE.segment = f"soak_{dedup}_warm"
+        warm, warm_wall, warm_launches = drive(model, dedup=dedup)
+        PROGRAM_USE.segment = "other"
+        # The warm run's table is audited; the cold run's must match it
+        # level by level.
+        line = {"cold": dedup_line(cold, cold_wall, launches[f"dedup_{dedup}_rm9"], dedup,
+                                   f"rm=9 {dedup} cold", audit=False),
+                "warm": dedup_line(warm, warm_wall, warm_launches, dedup, f"rm=9 {dedup} warm")}
+        require(line["warm"]["graph_captures"] == 0, f"rm=9 {dedup}: the warm run captured graphs")
+        now = ((cold.state_count(), cold.unique_state_count(), cold.max_depth()),
+               [r[:4] for r in levels(cold)])
+        require(now[1] == [r[:4] for r in levels(warm)], f"rm=9 {dedup}: warm vs cold levels")
+        ref = ref or now
+        require(now == ref, f"rm=9 {dedup}: counts or levels differ from the sorted run's")
+        check_paths(warm)
+        line["peak_mem_gib"] = cold_peak
+        line["reserved_gib"] = torch.cuda.memory_reserved() / 2**30
+        line["widest_level"] = dict(max(warm.level_log, key=lambda r: r["frontier"]))
+        line["table_step"] = table_step_ms(model, dedup, warm)
+        if dedup == "delta":
+            t = warm._table
+            line["flush"] = {"ms": timed_ms(lambda: deltaset.maintain(t), reps=5, queued=True),
+                             **ops_split(device_ops(lambda: deltaset.maintain(t), MERGE_SYMBOL),
+                                         MERGE_SYMBOL),
+                             "main_capacity": t.main_capacity, "delta_capacity": t.delta_capacity,
+                             "n_main": int(t.n_main), "n_delta": int(t.n_delta)}
+            shapes = {
+                "levels": [dict(r) for r in warm.level_log], "A": model.max_actions,
+                "W": model.state_words, "table_capacity": t.delta_capacity,
+                "unique": 3 * t.delta_capacity // 4, "main_capacity": t.main_capacity,
+                "n_main": int(t.n_main) + int(t.n_delta),
+            }
+        out[dedup] = line
+        widest_cands = max(r["cand_cap"] for r in warm.level_log)
+        widest_gen = max(r["generated"] for r in warm.level_log)
+        actions = model.max_actions
+        del model, cold, warm
+    out["generated"], out["unique"], out["max_depth"] = ref[0]
+    out["level_log"] = ref[1]
+    out["rm10_extrapolation"] = rm10_extrapolation(out["sorted"], ref[0][0], actions)
+    emit({"phase": "soak_rm9", **out})
+    return launches, shapes, widest_cands, widest_gen
+
+
+def rm10_extrapolation(line: dict, generated: int, actions: int) -> dict:
+    """rm=10's widest level from rm=9's sorted run: the widest frontier
+    grown by rm=9's own growth over rm=8 (generated states), in the power
+    of two of rows the frontier ceiling doubles to, at five more action
+    slots; its peak memory the rm=9 peak scaled by rows times actions."""
+    growth = generated / EXPECTED_2PC[8][0]
+    frontier = line["widest_level"]["frontier"] * growth
+    bucket = 1 << max(int(frontier) - 1, 1).bit_length()
+    rm9_bucket = line["widest_level"]["bucket"]
+    return {"growth": growth, "widest_frontier": frontier, "bucket": bucket,
+            "peak_gib": line["peak_mem_gib"] * bucket / rm9_bucket * (actions + 5) / actions}
+
+
+def flush_merge_phase(rng, shapes) -> dict:
+    """``merge_insert`` at the delta set's flush: the rm=9 run's main tier
+    (its rows) as the table and a full delta tier of fresh unique keys as
+    the batch, against the plain version 5 times, and timed."""
+    c, n_main, dc = shapes["main_capacity"], shapes["n_main"], shapes["table_capacity"]
+    keys = np.unique(rng.integers(1, 2**62, n_main + dc + dc // 8, dtype=np.uint64))
+    rng.shuffle(keys)
+    keys = keys[: n_main + dc]
+    n_main = min(n_main, c - dc)
+    table, batch = _planes(rng, np.sort(keys[:n_main]), c), _planes(rng, np.sort(keys[n_main:]), dc)
+    check = check_merge("delta_flush", table, batch, reps=5)
+    timing = kernel_timing(
+        lambda: merge_insert(table, batch), lambda: merge_insert_plain(table, batch), None,
+        (2 * c + 2 * dc) * 8 + 6 * min(check["n_keep"], c) * 8 + dc + 8, MERGE_SYMBOL,
+    )
+    timing.pop("device_ops")
+    del table, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**check, **timing}
+
+
+def dedup_phase(main_model, main_warm, rng):
+    """The hash and delta visited sets through ``Packed<Model>(...).checker()
+    .spawn_xla(dedup=...)`` on the card: rm=8 under each, cold and then warm
+    on one model instance (exact, the warm run capturing nothing, equal in
+    depth and every level to the sorted main path), each structure's table
+    step on its widest level's own batch beside the sorted set's
+    (:func:`table_step_ms`), and a profiled warm
+    run of each; the soak configuration (:func:`soak_phase`); one rm=5
+    instance through sorted, hash, delta and sorted runs (the program key
+    holds the structure: the fourth captures nothing); Paxos 2c/3s and ABD
+    2c/2s under hash and delta and rm=8 reduced under delta at their pins;
+    the hash kernel against its plain version (:func:`hash_kernel_phase`);
+    both kernels at the delta set's shapes; rm=8 saved mid-run on the card
+    under each of hash and delta and resumed on the CPU under the other.
+    Returns the launches of each path, the hash kernel's lines (insert and
+    undo) and ``merge_insert``'s at the delta set's shapes."""
+    launches, out = {}, {}
+    sorted_levels = [r[:4] for r in levels(main_warm)]
+    steps = {"sorted": table_step_ms(main_model, "sorted", main_warm)}
+    profiles = {}
+    for dedup in ("hash", "delta"):
+        model = PackedTwoPhaseSys(8)
+        torch.cuda.reset_peak_memory_stats()
+        PROGRAM_USE.segment = f"{dedup}8_cold"
+        cold, cold_wall, launches[f"dedup_{dedup}_rm8"] = drive(model, dedup=dedup)
+        PROGRAM_USE.segment = f"{dedup}8_warm"
+        warm, warm_wall, warm_launches = drive(model, dedup=dedup)
+        PROGRAM_USE.segment = "other"
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        line = {"cold": {**dedup_line(cold, cold_wall, launches[f"dedup_{dedup}_rm8"], dedup,
+                                      f"rm=8 {dedup}", audit=False),
+                         **check_rm8(cold, launches[f"dedup_{dedup}_rm8"], f"{dedup} cold")},
+                "warm": {**dedup_line(warm, warm_wall, warm_launches, dedup, f"rm=8 {dedup} warm",
+                                      audit=False),
+                         **check_rm8(warm, warm_launches, f"{dedup} warm")}}
+        require(line["warm"]["graph_captures"] == 0, f"rm=8 {dedup}: the warm run captured graphs")
+        for c, what in ((cold, "cold"), (warm, "warm")):
+            require([r[:4] for r in levels(c)] == sorted_levels and c.max_depth() == main_warm.max_depth(),
+                    f"rm=8 {dedup} {what}: levels differ from the sorted run's")
+        line["peak_mem_gib"] = peak
+        line["program_use"] = PROGRAM_USE.summary(f"{dedup}8_cold", [f"{dedup}8_warm"])
+        steps[dedup] = table_step_ms(model, dedup, warm)
+        out[f"rm8_{dedup}"] = line
+        profiles[dedup] = model
+        del cold, warm
+    profiles["sorted"] = main_model
+    for dedup, model in profiles.items():
+        c, wall, kernels = profiled(lambda: model.checker().spawn_xla(dedup=dedup).join())
+        require(c.metrics()["graph_captures"] == 0, f"rm=8 {dedup}: the profiled run captured graphs")
+        busy = sum(ms for _, ms, _ in kernels)
+        table_kernels = {k[:40]: ms for k, ms, _ in kernels
+                         if any(s in k for s in (MERGE_SYMBOL, HASH_SYMBOL, "elect_kernel",
+                                                 "commit_kernel", "exact_kernel"))}
+        out[f"rm8_{dedup}_profile"] = {
+            "profiled_wall_s": wall, "levels": len(c.level_log),
+            "device_busy_ms": busy if kernels else "not measured",
+            "device_ms_per_level": busy / len(c.level_log) if kernels else "not measured",
+            "device_idle_share": 1 - busy / (wall * 1e3) if kernels else "not measured",
+            "table_kernels_ms": table_kernels,
+        }
+    out["rm8_table_step"] = steps
+    del profiles
+    soak_launches, delta_shapes, m_soak, gen_soak = soak_phase()
+    launches.update(soak_launches)
+
+    model = PackedTwoPhaseSys(5)
+    runs = []
+    for dedup in ("sorted", "hash", "delta", "sorted"):
+        c, wall, n = drive(model, dedup=dedup)
+        require((c.state_count(), c.unique_state_count()) == EXPECTED_2PC[5], f"rm=5 program key: {dedup}")
+        runs.append({"dedup": dedup, **dedup_line(c, wall, n, dedup, f"rm=5 {dedup}")})
+        launches[f"dedup_rm5_{len(runs)}_{dedup}"] = n
+    require(runs[3]["graph_captures"] == 0, f"rm=5 program key: the fourth run captured {runs[3]}")
+    out["rm5_program_key"] = runs
+
+    small = {}
+    for dedup in ("hash", "delta"):
+        for name, build, want in (("paxos2", lambda: PackedPaxos(2, 3), EXPECTED_PAXOS2),
+                                  ("abd2", lambda: PackedAbd(2, 2), EXPECTED_ABD[("unordered", 2)][:2])):
+            c, wall, n = drive(build(), dedup=dedup)
+            require((c.state_count(), c.unique_state_count()) == want, f"{name} {dedup} counts")
+            check_paths(c)
+            small[f"{name}_{dedup}"] = dedup_line(c, wall, n, dedup, f"{name} {dedup}")
+            launches[f"dedup_{name}_{dedup}"] = n
+    c, wall, n = drive(PackedTwoPhaseSys(8), sym=True, dedup="delta")
+    small["sym_rm8_delta"] = {**dedup_line(c, wall, n, "delta", "sym rm=8 delta", audit=False),
+                              **sym_line(c, "sym rm=8 delta", n, wall)}
+    launches["dedup_sym_rm8_delta"] = n
+    out["models"] = small
+
+    hash_lines = hash_kernel_phase(2026, m_soak, gen_soak)
+    merge_lines = {"level": model_kernel_phase(delta_shapes, rng, tag="delta9"),
+                   "flush": flush_merge_phase(rng, delta_shapes)}
+
+    # rm=8 saved on the card under one structure, resumed on the CPU under the other.
+    left, acc = 0, 0
+    for r in main_warm.level_log:
+        acc += r["generated"]
+        if acc >= (1 - CPU_TAIL_SHARE) * main_warm.state_count():
+            left = r["depth"] + 1
+            break
+    ckpt = {}
+    for saver, reader in (("hash", "delta"), ("delta", "hash")):
+        path = os.path.join(CKPT_DIR, f"rm8_{saver}.npz")
+        torch.cuda.synchronize()
+        zero_launches()
+        run_to_depth(PackedTwoPhaseSys(8), left, dedup=saver).save_checkpoint(path)
+        torch.cuda.synchronize()
+        launches[f"dedup_checkpoint_{saver}"] = launches_now(saver)
+        t0 = time.perf_counter()
+        cpu = PackedTwoPhaseSys(8).checker().spawn_xla(device="cpu", dedup=reader, checkpoint=path).join()
+        cpu_s = time.perf_counter() - t0
+        require((cpu.state_count(), cpu.unique_state_count(), cpu.max_depth())
+                == (*EXPECTED_2PC[8], main_warm.max_depth()), f"rm=8 {saver} card -> {reader} CPU counts")
+        require(tail_levels(cpu, left) == tail_levels(main_warm, left), f"rm=8 {saver} -> {reader} levels")
+        check_paths(cpu)
+        ckpt[f"{saver}_card_to_{reader}_cpu"] = {
+            "save_depth": left, "rows": len(load_checkpoint(path)["key_hi"]), "cpu_wall_s": cpu_s,
+            "launches": launches[f"dedup_checkpoint_{saver}"], "audit": audited(cpu, f"{reader} CPU"),
+        }
+    out["checkpoint"] = ckpt
+    emit({"phase": "dedup", **out, "launches": launches})
+    return launches, hash_lines, merge_lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2093,6 +2651,8 @@ def run_phases() -> int:
     new_paths.update(models_phase())
     sym_launches, sym_shapes = symmetry_phase(np.random.default_rng(2024))
     new_paths.update(sym_launches)
+    dedup_launches, hk, dk = dedup_phase(model, checker, np.random.default_rng(2025))
+    new_paths.update(dedup_launches)
     rng = np.random.default_rng(2024)
     b1 = compact_phase(checker, rng)
     m_main = max(r["cand_cap"] for r in checker.level_log)
@@ -2108,16 +2668,32 @@ def run_phases() -> int:
     ):
         by_path = {"rm8": launches[name], "paxos3": paxos_launches[name],
                    **{f"scr_{k}": v[name] for k, v in scr_launches.items()},
-                   **{k: v[name] for k, v in new_paths.items()}}
+                   **{k: v[name] for k, v in new_paths.items() if name in v}}
         new_shapes = rk[name]
+        delta = {"compact": dk["level"]["compact"], "merge_insert": {
+            "level": dk["level"]["merge_insert"], "flush": dk["flush"]}}[name]
+        errs = [main, px[name], ak[name], sk[name], *new_shapes.values(), dk["level"][name]]
+        if name == "merge_insert":
+            errs.append(dk["flush"])
         kernels.append({
             "name": name, "route": "cuda", "source": f"stateright_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
             "bound_by": "bytes", **main,
-            "max_abs_err": max(main["max_abs_err"], px[name]["max_abs_err"], ak[name]["max_abs_err"],
-                               sk[name]["max_abs_err"], *(v["max_abs_err"] for v in new_shapes.values())),
+            "max_abs_err": max(e["max_abs_err"] for e in errs),
             "paxos3": px[name], "ladder_and_hv_shapes": new_shapes, "abd3": ak[name],
-            "sym14": sk[name],
+            "sym14": sk[name], "delta9": delta,
+        })
+    notes = {
+        "hashset_insert": "insert, jitted JAX (a while_loop of scatter-min rounds); no pallas_call",
+        "hashset_undo": "none: the reference's insert is functional, its gate selects a copy",
+    }
+    for name, line in zip(("hashset_insert", "hashset_undo"), hk):
+        by_path = {k: v[name] for k, v in new_paths.items() if name in v}
+        kernels.append({
+            "name": name, "route": "cuda", "source": "stateright_tpu_torch/csrc/hashset.cu",
+            "replaces": "stateright_tpu/ops/hashset.py:50", "replaces_note": notes[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **{k: v for k, v in line.items() if k != "device_ops"},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

@@ -5,7 +5,8 @@ from the arrays a checkpoint holds (``checkpoint.load_checkpoint``), written
 by either package's engine. The logical state — the visited set as
 compacted ``(fingerprint, parent)`` 32-bit lanes, the frontier rows with
 their eventually-bits, and the counters of the meta — becomes the port's
-``SortedSet``, frontier tensors and counters.
+visited set of the chosen structure (a file written under any structure
+restores into any), frontier tensors and counters.
 """
 
 from __future__ import annotations
@@ -14,24 +15,30 @@ from typing import Any, Dict
 
 import numpy as np
 
-from .ops import sortedset
+from .ops import deltaset, hashset, sortedset
 from .ops.words import from_u32
 
 
 def state_from_checkpoint(
-    arrays: Dict[str, np.ndarray], meta: Dict[str, Any], device, table_capacity: int
+    arrays: Dict[str, np.ndarray], meta: Dict[str, Any], device, table_capacity: int,
+    dedup: str = "sorted", max_probes: int = 32,
 ) -> Dict[str, Any]:
     """The port's search state from a checkpoint's ``arrays`` and ``meta``
-    (``checkpoint.load_checkpoint``). The visited set gets the
-    smallest power-of-two capacity from ``table_capacity`` up with room for
-    twice its rows, as the reference engine sizes a restored table."""
+    (``checkpoint.load_checkpoint``), its visited set in the structure
+    ``dedup``. The set gets the smallest power-of-two capacity from
+    ``table_capacity`` up with room for twice its rows, as the reference
+    engine sizes a restored table: the sorted and delta sets are built
+    sorted (``from_entries``), the hash set by inserting the rows in the
+    file's order, doubled until none overflows."""
     n = len(arrays["key_hi"])
     cap = table_capacity
     while cap < 2 * n:
         cap *= 2
-    table = sortedset.from_entries(
-        arrays["key_hi"], arrays["key_lo"], arrays["val_hi"], arrays["val_lo"], cap, device
-    )
+    rows = [arrays[k] for k in ("key_hi", "key_lo", "val_hi", "val_lo")]
+    if dedup == "hash":
+        table = hashset.from_entries(*rows, cap, device, max_probes)
+    else:
+        table = {"sorted": sortedset, "delta": deltaset}[dedup].from_entries(*rows, cap, device)
     rows = np.asarray(arrays["frontier"], dtype=np.uint32)
     return {
         "table": table,

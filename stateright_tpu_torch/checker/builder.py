@@ -72,10 +72,16 @@ class CheckerBuilder:
         either package), ``checkpoint_to``/``checkpoint_every``/
         ``checkpoint_keep`` (auto-checkpointing) and ``symmetry`` ("auto",
         the default, honours ``symmetry()``; "on" or "off" force it; the
-        ``STPU_SYMMETRY`` environment variable when not given). Under
-        symmetry the engine canonicalizes through the model's
-        ``symmetry_spec`` or ``packed_representative``, and raises
-        ``SymmetryUnsupported`` for a model with neither."""
+        ``STPU_SYMMETRY`` environment variable when not given), ``dedup``
+        (the visited set: "auto", the default, is "sorted" on every device;
+        "hash" is open addressing on the CUDA kernel ``csrc/hashset.cu``,
+        with the one-rung block; "delta" is a sorted main tier with a delta
+        tier a sixteenth its size, flushed between blocks) and
+        ``max_probes`` (32: the hash set's probe budget before a level
+        grows the table and runs again). Under symmetry the engine
+        canonicalizes through the model's ``symmetry_spec`` or
+        ``packed_representative``, and raises ``SymmetryUnsupported`` for
+        a model with neither."""
         from ..xla import XlaChecker
 
         return XlaChecker(self, **kwargs)

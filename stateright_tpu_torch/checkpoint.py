@@ -8,7 +8,9 @@ archive of the *logical* search state, independent of either engine's
 memory layout:
 
 - the visited set as compacted ``(fingerprint, parent)`` pairs (four
-  ``uint32`` lanes: ``key_hi/key_lo/val_hi/val_lo``), sorted and unique;
+  ``uint32`` lanes: ``key_hi/key_lo/val_hi/val_lo``), unique, in the
+  structure's plane order (sorted for the sorted set; slot order for the
+  hash set; main then delta for the delta set), as the reference writes;
 - the frontier as packed ``uint32`` state rows and eventually-bit words;
 - scalar progress counters and discovery pins, and the model's identity
   (class name, packed geometry, configuration digest, property names,
@@ -38,7 +40,6 @@ import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from .ops.words import to_u32
 
@@ -99,14 +100,12 @@ def _payload_digest(arrays: Dict[str, np.ndarray]) -> str:
 
 def checkpoint_arrays(checker) -> Dict[str, np.ndarray]:
     """The payload of ``checker``'s current search state as ``uint32``
-    arrays: the visited set's occupied prefix ``[:n]`` (sorted and unique;
-    its rows from ``n`` on are pads), copied to the host in one transfer,
-    and the live frontier rows with their eventually-bits."""
-    table = checker._table
-    n = int(table.n)
-    planes = to_u32(torch.stack([p[:n] for p in table[:4]]))
+    arrays: the visited set's occupied rows in its plane order (the
+    structure's ``occupied_rows``) and the live frontier rows with their
+    eventually-bits."""
+    rows = checker._ds.occupied_rows(checker._table)
     return {
-        **dict(zip(PAYLOAD_KEYS[:4], planes)),
+        **dict(zip(PAYLOAD_KEYS[:4], rows)),
         "frontier": checker._frontier_rows_host(),
         "frontier_ebits": to_u32(checker._frontier_ebits[: checker._frontier_count]),
     }

@@ -14,19 +14,25 @@ the gate.
 
 - A :class:`Carry` holds the static device buffers the gated level reads and
   updates in place: the frontier and its eventually-bits per run bucket,
-  the visited-set planes, the discoveries, the host-verified candidates of
+  the visited set's planes (those of its ``dedup`` structure: four for the
+  sorted set, three for the hash set, nine for the delta set; its counts
+  are block scalars), the discoveries, the host-verified candidates of
   the block, the block scalars (:data:`SLOTS`) and the per-level telemetry.
-  Every graph of a model at one table capacity shares one carry: the graphs
-  never run at the same time, and a checker loads its state into the carry
-  at a block's start and clones what it keeps at the block's end.
+  Every graph of a model at one table capacity and structure shares one
+  carry: the graphs never run at the same time, and a checker loads its
+  state into the carry at a block's start and clones what it keeps at the
+  block's end.
 - A :class:`Program` is one shape key ``(run_cap, rows, cand_cap,
-  table_capacity, levels_per_dispatch, hv_cap, sym_tag)``: the gated level
-  of bucket ``run_cap`` run on its first ``rows`` frontier rows at
-  candidate cap ``cand_cap`` (a rung of the candidate ladder; ``rows ==
-  run_cap`` is the full rung), canonicalizing its dedup keys under the
-  symmetry ``sym_tag`` (None: none), as the reference keys its programs on
-  ``_sym_tag``. It holds its graph on a card, or nothing on the CPU, where the
-  checker runs the same gated level eagerly.
+  table_capacity, levels_per_dispatch, hv_cap, dedup, max_probes,
+  sym_tag)``: the gated level of bucket ``run_cap`` run on its first
+  ``rows`` frontier rows at candidate cap ``cand_cap`` (a rung of the
+  candidate ladder; ``rows == run_cap`` is the full rung), inserting into
+  the visited-set structure ``dedup`` (probing at most ``max_probes`` slots
+  in the hash set) and canonicalizing its dedup keys under the symmetry
+  ``sym_tag`` (None: none), as the reference keys its programs on
+  ``_dedup``, ``_max_probes`` and ``_sym_tag``. It holds its graph on a
+  card, or nothing on the CPU, where the checker runs the same gated level
+  eagerly.
 - A :class:`ProgramCache` per model and device holds the carries, the
   programs (every rung of each bucket a block ran at), and the graph
   memory pool that all of a model's graphs at one table capacity share
@@ -45,6 +51,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .ops import deltaset, hashset, sortedset
 from .ops.compact import compact
 from .ops.merge import merge_insert
 from .ops.words import DTYPE
@@ -64,13 +71,13 @@ LOOKAHEAD = 1
 #: The block scalars, slots of the carry's int64 vector ``s``: block inputs
 #: the host writes (budget, remaining, shrink_below), the level counters,
 #: the overflow flags of the last live level (table, frontier, the model's
-#: codec, candidate), the visited set's occupied count, ``live``, the gate
-#: of the next level, ``force_full``, set when a snug rung's candidate
-#: buffer overflowed so that the same frontier re-runs at full width, and
-#: ``retries``, the block's count of such fall-throughs.
+#: codec, candidate), the visited set's counts (:data:`COUNT_SLOTS`),
+#: ``live``, the gate of the next level, ``force_full``, set when a snug
+#: rung's candidate buffer overflowed so that the same frontier re-runs at
+#: full width, and ``retries``, the block's count of such fall-throughs.
 SLOTS = (
     "committed", "f_count", "tot_states", "tot_unique", "prev_gen",
-    "prev2_gen", "t_ovf", "f_ovf", "c_ovf", "cc_ovf", "table_n", "live",
+    "prev2_gen", "t_ovf", "f_ovf", "c_ovf", "cc_ovf", "table_n", "delta_n", "live",
     "budget", "remaining", "shrink_below", "force_full", "retries",
 )
 S = {name: i for i, name in enumerate(SLOTS)}
@@ -85,20 +92,29 @@ LVL_ROWS = 5
 IDLE_CACHE_DEN = 8
 
 #: The kernel wrappers whose launches a graph can hold.
-KERNELS = (compact, merge_insert)
+KERNELS = (compact, merge_insert, hashset.insert_, hashset.undo_)
+
+#: The visited-set structures by ``spawn_xla(dedup=)`` name. Each one's
+#: NamedTuple holds ``PLANES`` tensors, then its counts.
+STRUCTURES = {"sorted": sortedset, "hash": hashset, "delta": deltaset}
+#: The block scalars that hold a structure's counts, in its order: the
+#: sorted set's ``n``, the delta set's ``n_main`` and ``n_delta``.
+COUNT_SLOTS = ("table_n", "delta_n")
 
 
 class Carry:
-    """The static buffers of the gated level at one table capacity. The
-    block's host-verified candidates of ``n_hv`` properties take ``hv_cap``
-    rows each: state words, fingerprint and the count flagged."""
+    """The static buffers of the gated level at one table capacity of one
+    visited-set structure (``dedup``). The block's host-verified candidates
+    of ``n_hv`` properties take ``hv_cap`` rows each: state words,
+    fingerprint and the count flagged."""
 
     def __init__(self, device, words: int, n_props: int, levels: int, table_capacity: int,
-                 n_hv: int = 0, hv_cap: int = 0):
+                 n_hv: int = 0, hv_cap: int = 0, dedup: str = "sorted"):
         z = dict(dtype=DTYPE, device=device)
         self.words = words
         self.s = torch.zeros(len(SLOTS), **z)
-        self.table = [torch.zeros(table_capacity, **z) for _ in range(4)]
+        empty = STRUCTURES[dedup].make(table_capacity, device)
+        self.table = list(empty[:empty.PLANES])
         self.disc_found = torch.zeros(n_props, dtype=torch.bool, device=device)
         self.disc_fp = torch.zeros((n_props, 2), **z)
         self.host_found = torch.zeros(n_props, dtype=torch.bool, device=device)
@@ -183,18 +199,18 @@ class ProgramCache:
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
         #: The stream that warm-ups and captures run on.
         self.side = torch.cuda.Stream(device) if cuda else None
-        #: ``(table_capacity, levels_per_dispatch, hv_cap)`` -> Carry.
-        self.carries: Dict[Tuple[int, int, int], Carry] = {}
+        #: ``(table_capacity, levels_per_dispatch, hv_cap, dedup)`` -> Carry.
+        self.carries: Dict[Tuple[int, int, int, str], Carry] = {}
         #: ``(run_cap, rows, cand_cap, table_capacity, levels_per_dispatch,
-        #: hv_cap, sym_tag)`` -> Program.
+        #: hv_cap, dedup, max_probes, sym_tag)`` -> Program.
         self.programs: Dict[Tuple[int, ...], Program] = {}
 
     def carry(self, words: int, n_props: int, table_capacity: int, levels: int,
-              n_hv: int = 0, hv_cap: int = 0) -> Carry:
-        key = (table_capacity, levels, hv_cap)
+              n_hv: int = 0, hv_cap: int = 0, dedup: str = "sorted") -> Carry:
+        key = (table_capacity, levels, hv_cap, dedup)
         if key not in self.carries:
             self.carries[key] = Carry(self.device, words, n_props, levels, table_capacity,
-                                      n_hv, hv_cap)
+                                      n_hv, hv_cap, dedup)
         return self.carries[key]
 
     def make(self, key, carry: Carry, body: Callable[[], None], graph: bool) -> Program:
@@ -208,17 +224,18 @@ class ProgramCache:
         self.programs[key] = prog
         return prog
 
-    def drop(self, shape: Tuple[int, int, int]) -> None:
+    def drop(self, shape: Tuple[int, int, int, str]) -> None:
         """Forget the carry of ``shape`` = ``(table_capacity,
-        levels_per_dispatch, hv_cap)`` and every program on it, of every
-        symmetry tag: those of another tag than the grown checker's are
-        made anew when a check of that tag needs them. On a card, the
+        levels_per_dispatch, hv_cap, dedup)`` and every program on it, of
+        every symmetry tag and probe budget: those of another tag than the
+        grown checker's are made anew when a check of that tag needs them.
+        On a card, the
         memory of the dropped graphs and carry is handed back before the
         programs at the grown capacity are made (a wide model's largest
         bucket could not hold two levels' worth at once), and later
         captures go to a new pool: a pool whose graphs are all gone is
         freed with them and cannot take another capture."""
-        for key in [k for k in self.programs if k[3:6] == shape]:
+        for key in [k for k in self.programs if k[3:7] == shape]:
             del self.programs[key]
         self.carries.pop(shape, None)
         if self.device.type == "cuda":

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 #: Every kernel source of the package, by stem.
-SOURCES = ("compact", "merge")
+SOURCES = ("compact", "merge", "hashset")
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 #: (argtypes, restype) of each exported C function, by library.
@@ -46,6 +46,13 @@ _SIGNATURES = {
     "merge": {
         "stpu_merge_insert": ([_P, _I64, _P, _I64] + [_P] * 5, _INT),
         "stpu_merge_status_words": ([_I64, _I64], _I64),
+    },
+    "hashset": {
+        "stpu_hashset_insert": (
+            [_P, _P, _P, _I64] + [_P] * 5 + [_I64, _INT] + [_P] * 6 + [_I64, _P, _P],
+            _INT,
+        ),
+        "stpu_hashset_undo": ([_P] * 5 + [_I64, _P], _INT),
     },
 }
 

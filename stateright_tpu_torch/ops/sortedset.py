@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .merge import merge_insert
-from .words import DTYPE, FULL, PAD_KEY, fold_key, from_u32
+from .words import DTYPE, FULL, PAD_KEY, fold_key, from_u32, to_u32
 
 
 class SortedSet(NamedTuple):
@@ -35,6 +35,9 @@ class SortedSet(NamedTuple):
     val_hi: torch.Tensor  # [C] int64
     val_lo: torch.Tensor  # [C] int64
     n: torch.Tensor  # [] int64 — occupied prefix length
+
+    #: The tensors a carry holds (``graphs.Carry``); the count follows.
+    PLANES = 4
 
     @property
     def capacity(self) -> int:
@@ -114,6 +117,13 @@ def lookup(ss: SortedSet, fp_hi, fp_lo):
     at = torch.clamp(torch.searchsorted(keys, q), max=cap - 1)
     hit = keys[at] == q
     return hit, torch.where(hit, ss.val_hi[at], 0), torch.where(hit, ss.val_lo[at], 0)
+
+
+def occupied_rows(ss: SortedSet):
+    """The occupied prefix ``(key_hi, key_lo, val_hi, val_lo)`` as host
+    ``uint32`` arrays, sorted and unique, copied in one transfer."""
+    n = int(ss.n)
+    return list(to_u32(torch.stack([p[:n] for p in ss[:4]])))
 
 
 def grow(ss: SortedSet, new_capacity: int) -> SortedSet:

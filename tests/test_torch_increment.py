@@ -158,12 +158,11 @@ def test_command_line(module, capsys):
 
 @pytest.mark.parametrize("cls,ref_cls", [(inc.PackedIncrement, ref_inc.PackedIncrement),
                                          (lock.PackedIncrementLock, ref_lock.PackedIncrementLock)])
-def test_device_symmetry_waits_for_a6(cls, ref_cls):
+def test_device_symmetry_equals_the_reference(cls, ref_cls):
     """The device symmetry at 3 threads gives the reference's results:
     ``packed_representative`` on every reachable state, the
     ``symmetry_spec``'s tag, and ``checker().symmetry().spawn_xla()``'s
-    counts, tag and discoveries. (The name is kept from when this test
-    pinned the refusal that symmetry once met here.)"""
+    counts, tag and discoveries."""
     m, ref = cls(3), ref_cls(3)
     rows = np.stack([m.pack(s) for s in reachable(m)])
     got = to_u32(m.packed_representative(from_u32(rows, "cpu")))

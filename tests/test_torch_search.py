@@ -339,10 +339,9 @@ def test_spawn_xla_visit_cap_warns_and_cuts():
     assert accessor() == [0, 1, 3]
 
 
-def test_spawn_xla_refuses_symmetry():
+def test_spawn_xla_symmetry_rm3_equals_the_reference():
     """``symmetry()`` on the builder reaches the GPU engine: rm=3 reduces to
-    the reference's 80 classes, level by level. (The name is kept from
-    when this test pinned the engine's refusal of symmetry.)"""
+    the reference's 80 classes, level by level."""
     got = port_2pc.PackedTwoPhaseSys(3).checker().symmetry().spawn_xla(**CPU).join()
     want = ref_2pc.PackedTwoPhaseSys(3).checker().symmetry().spawn_xla(dedup="sorted").join()
     assert got.unique_state_count() == want.unique_state_count() == 80

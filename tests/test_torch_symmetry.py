@@ -374,11 +374,11 @@ def test_a_table_growth_drops_every_tags_programs_on_the_old_carry():
     carry = cache.carry(2, 3, 64, 32)
     other = cache.carry(2, 3, 64, 1)
     for tag in ("spec:a", None):
-        cache.make((64, 64, 256, 64, 32, 0, tag), carry, lambda: None, graph=False)
-    cache.make((64, 64, 256, 64, 1, 0, None), other, lambda: None, graph=False)
-    cache.drop((64, 32, 0))
-    assert list(cache.programs) == [(64, 64, 256, 64, 1, 0, None)]
-    assert list(cache.carries) == [(64, 1, 0)]
+        cache.make((64, 64, 256, 64, 32, 0, "sorted", 32, tag), carry, lambda: None, graph=False)
+    cache.make((64, 64, 256, 64, 1, 0, "sorted", 32, None), other, lambda: None, graph=False)
+    cache.drop((64, 32, 0, "sorted"))
+    assert list(cache.programs) == [(64, 64, 256, 64, 1, 0, "sorted", 32, None)]
+    assert list(cache.carries) == [(64, 1, 0, "sorted")]
 
 
 def test_a_plain_table_growth_leaves_the_symmetric_check_exact():
