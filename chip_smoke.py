@@ -2166,43 +2166,153 @@ def _table_pairs(hs) -> torch.Tensor:
     return torch.stack([key, hs.val[order]])
 
 
+def _hash_copy(hs):
+    return hashset.HashSet(hs.slots.clone())
+
+
 def check_hash(name: str, hs, lanes, reps: int = 1, layout: bool = False) -> dict:
     """The kernel (``reps`` calls, each on a fresh copy of ``hs``) against
     the plain version on a copy of its own: ``is_new`` and ``overflow``
     equal bitwise, the stored (key, value) pairs equal as a set (and, with
-    ``layout``, the planes bit for bit: the kernel's exact path runs the
-    reference's rounds), the ticket plane back at rest."""
-    want = hashset.HashSet(hs.key.clone(), hs.val.clone(), hs.ticket.clone())
+    ``layout``, the slots bit for bit: the kernel's exact path runs the
+    reference's rounds), every ticket back at rest and every pad word 0,
+    and the record (``filled``) exactly the slots the batch filled, one a
+    new key."""
+    want = _hash_copy(hs)
     w_new, w_ovf, _ = hashset.insert_plain(want, *lanes)
     want_pairs = _table_pairs(want)
-    err = 0
+    was_empty = hs.key == 0
+    err, exact = 0, set()
     for _ in range(reps):
-        got = hashset.HashSet(hs.key.clone(), hs.val.clone(), hs.ticket.clone())
-        g_new, g_ovf, _ = hashset.insert_(got, *lanes)
+        got = _hash_copy(hs)
+        g_new, g_ovf, filled = hashset.insert_(got, *lanes)
         torch.cuda.synchronize()
         require(torch.equal(g_new, w_new), f"hash {name}: is_new")
         require(torch.equal(g_ovf, w_ovf), f"hash {name}: overflow")
         require(bool((got.ticket == hashset.NO_TICKET).all()), f"hash {name}: tickets at rest")
+        require(bool((got.slots[:, 3] == 0).all()), f"hash {name}: pad words")
+        n = int(filled[0])
+        rec = torch.sort(filled[2:2 + n].to(DTYPE)).values
+        require(n == int(g_new.sum()) and torch.equal(
+            rec, (was_empty & (got.key != 0)).nonzero().squeeze(1)), f"hash {name}: the record")
+        exact.add(int(filled[1]))
         if not bool(w_ovf.any()):
             err = max(err, int((_table_pairs(got) != want_pairs).sum()))
         if layout:
-            require(torch.equal(got.key, want.key) and torch.equal(got.val, want.val),
-                    f"hash {name}: planes")
+            require(torch.equal(got.slots, want.slots), f"hash {name}: slots")
         require(err == 0, f"hash {name}: stored pairs differ")
-        del got
+        del got, filled
+    require(len(exact) == 1, f"hash {name}: the exact path ran in some calls only")
     return {"C": hs.capacity, "m": lanes[0].shape[0], "active": int(lanes[4].sum()),
             "new": int(w_new.sum()), "overflowed": int(w_ovf.sum()), "reps": reps,
-            "layout_equal": layout, "max_abs_err": err}
+            "layout_equal": layout, "exact_path": bool(exact.pop()), "max_abs_err": err}
 
 
-def hash_bytes(lanes, n_new: int) -> int:
-    """Bytes an insert must move: ``active`` read and ``is_new`` and
-    ``overflow`` written for every lane; an active lane's two key words and
-    one 32-byte sector of the table; a new key's two value words read and
-    its key and value written. An inactive lane reads nothing more, and
-    only a winner reads its value."""
+def _sectors(lanes, idx) -> int:
+    """32-byte sectors that hold a word of ``lanes`` at the indices ``idx``."""
+    if not idx.numel():
+        return 0
+    addrs = [lane.data_ptr() + idx * (lane.stride(0) * 8) for lane in lanes]
+    return torch.unique(torch.cat(addrs) // 32).numel()
+
+
+def hash_bounds(lanes, is_new) -> dict:
+    """An insert's least device time. ``bound_ms``, in bytes: ``active`` read
+    and ``is_new`` and ``overflow`` written for every lane; an active lane's
+    two key words and one 32-byte sector of the table; a new key's two value
+    words read and its key and value written. An inactive lane reads
+    nothing more, and only a winner reads its value. ``sector_floor_ms``,
+    a 32-byte sector for each random access: the sectors of the key lanes
+    that hold an active lane's word, a table sector read an active lane,
+    the sectors of the value lanes that hold a winner's word, and a new
+    key's slot written (key and value in one sector)."""
     m = lanes[0].shape[0]
-    return m * 3 + int(lanes[4].sum()) * (16 + 32) + n_new * (16 + 16)
+    active, n_new = lanes[4].nonzero().squeeze(1), int(is_new.sum())
+    floor = (m * 3 + 32 * _sectors(lanes[:2], active) + 32 * active.numel()
+             + 32 * _sectors(lanes[2:4], is_new.nonzero().squeeze(1)) + 32 * n_new)
+    return {"bound_ms": bound_ms(m * 3 + active.numel() * (16 + 32) + n_new * (16 + 16)),
+            "sector_floor_ms": bound_ms(floor), "bound_by": "bytes"}
+
+
+def undo_bounds(n_new: int) -> dict:
+    """The undo's least device time: the record's slots read and each
+    winner's key and value cleared (``bound_ms``); at the sector's grain,
+    the record read and one 32-byte sector written a winner."""
+    return {"bound_ms": bound_ms(8 + 4 * n_new + 16 * n_new),
+            "sector_floor_ms": bound_ms(8 + 4 * n_new + 32 * n_new), "bound_by": "bytes"}
+
+
+def hash_timing(t, lanes, max_probes: int = 32, plain: bool = False) -> dict:
+    """The insert of ``lanes`` into ``t`` and the undo of such an insert,
+    device time alone (every timed insert into a fresh copy of ``t``, every
+    timed undo dropping one), with their bounds; each one's device
+    operations a call (profiled over insert-and-undo steps that leave the
+    copy as it found it) and, with ``plain``, the plain versions' ms.
+    ``gather_ms`` times ``t.key[home]`` at every active lane's home slot:
+    the random reads alone, one a lane, as the card serves them."""
+    copies = iter([_hash_copy(t) for _ in range(7)])
+    insert_ms = timed_ms(lambda: hashset.insert_(next(copies), *lanes, max_probes), reps=5, queued=True)
+    del copies
+    done = iter([(c, *hashset.insert_(c, *lanes, max_probes)) for c in (_hash_copy(t) for _ in range(3))])
+    drop = torch.zeros((), dtype=torch.bool, device="cuda")
+
+    def undo_next():
+        c, _, _, filled = next(done)
+        hashset.undo_(c, filled, drop)
+
+    undo_ms = timed_ms(undo_next, reps=1, queued=True)
+    del done
+    # The library call: the plain undo's own index_copy_ of the rest slot,
+    # the record's count read on the host first.
+    c = _hash_copy(t)
+    is_new, _, filled = hashset.insert_(c, *lanes, max_probes)
+    at = filled[2:2 + int(filled[0])].to(DTYPE)
+    rest = torch.tensor(hashset.EMPTY_SLOT, dtype=DTYPE, device="cuda").expand(at.shape[0], 4)
+    library_ms = timed_ms(lambda: c.slots.index_copy_(0, at, rest), reps=5, queued=True)
+    require(torch.equal(c.slots, t.slots), "hash: index_copy_ of the rest slot is not the undo")
+    del at, rest, filled
+
+    def step():
+        hashset.undo_(c, hashset.insert_(c, *lanes, max_probes)[2], drop)
+
+    ops = device_ops(step, HASH_SYMBOL)
+    require(torch.equal(c.slots, t.slots), "hash: insert and undo left the table other than it was")
+    del c
+    undo_ops = {k: v for k, v in ops.items() if "undo_kernel" in k}
+    insert_ops = {k: v for k, v in ops.items() if k not in undo_ops}
+    per_call = lambda o: sum(op["per_call"] for op in o.values()) if o else "not measured"
+    n_new = int(is_new.sum())
+    # The card's own floor for the claim pass's random reads: the table's
+    # key word gathered at every active lane's home slot.
+    homes = hashset.home_slot(lanes[0], lanes[1], t.capacity)[lanes[4]]
+    gather_ms = timed_ms(lambda: t.key[homes], reps=5, queued=True)
+    del homes
+    out = {
+        "insert": {"ms": insert_ms, **hash_bounds(lanes, is_new), "gather_ms": gather_ms,
+                   "gather_reads_per_s": int(lanes[4].sum()) / gather_ms * 1e3,
+                   "device_launches_per_call": per_call(insert_ops), "device_ops": insert_ops},
+        "undo": {"ms": undo_ms, **undo_bounds(n_new), "dropped": n_new, "library_ms": library_ms,
+                 "sector_writes_per_s": n_new / undo_ms * 1e3,
+                 "library_call": "index_copy_ of the rest slot at the record's slots",
+                 "device_launches_per_call": per_call(undo_ops), "device_ops": undo_ops},
+    }
+    if plain:
+        plain_copies = iter([_hash_copy(t) for _ in range(3)])
+        out["insert"]["plain_ms"] = timed_ms(
+            lambda: hashset.insert_plain(next(plain_copies), *lanes, max_probes), reps=1)
+        del plain_copies
+        plain_done = iter([(c, *hashset.insert_(c, *lanes, max_probes))
+                           for c in (_hash_copy(t) for _ in range(3))])
+
+        def plain_undo_next():
+            c, _, _, filled = next(plain_done)
+            hashset.undo_plain(c, filled, drop)
+
+        out["undo"]["plain_ms"] = timed_ms(plain_undo_next, reps=1)
+        del plain_done
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def hash_kernel_phase(seed: int, m: int, n_valid: int):
@@ -2211,11 +2321,11 @@ def hash_kernel_phase(seed: int, m: int, n_valid: int):
     active) into a 2^26-slot table an eighth full, 5 calls on fresh copies,
     each undone (``undo_``, a level not committed) back to the table bit for
     bit; then adversarial batches: every row one key; 100 distinct keys on
-    one home slot, more than ``max_probes`` (the kernel's exact path, planes
+    one home slot, more than ``max_probes`` (the kernel's exact path, slots
     bit for bit); 4,096 keys on distinct slots that share one claim-buffer
     index (the reference's rounds elect one a round); a batch whose keys are
     all present; one row; no active row. Times the seeded case's insert and
-    its undo. Returns the lines of both."""
+    its undo (:func:`hash_timing`). Returns the lines of both."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     base = hashset.make(HASH_TABLE, "cuda")
     n0 = HASH_TABLE // 8
@@ -2240,64 +2350,34 @@ def hash_kernel_phase(seed: int, m: int, n_valid: int):
     require(cases["one_home_slot"]["overflowed"] == 100 - 32, "hash: one home slot past the budget")
     require(cases["claim_index"]["new"] == 4096 and cases["one_key"]["new"] == 1
             and cases["all_present"]["new"] == 0, f"hash: adversarial counts {cases}")
-    # Timing: every timed insert goes into a fresh copy of the base table;
-    # every timed undo drops one such insert.
-    fresh = lambda: hashset.HashSet(base.key.clone(), base.val.clone(), base.ticket.clone())
-    copies = [fresh() for _ in range(7)]
-    turn = iter(copies)
-    ms = timed_ms(lambda: hashset.insert_(next(turn), *lanes), reps=5, queued=True)
-    plain_copies = iter([fresh() for _ in range(3)])
-    plain_ms = timed_ms(lambda: hashset.insert_plain(next(plain_copies), *lanes), reps=1)
-    del plain_copies, copies, turn
-    done = [(c, *hashset.insert_(c, *lanes)) for c in (fresh() for _ in range(5))]
+    require(cases["one_home_slot"]["exact_path"]
+            and not any(c["exact_path"] for n, c in cases.items() if n != "one_home_slot"),
+            f"hash: the exact path ran other than on one home slot {cases}")
+    # Each insert undone (a level not committed) leaves the table as the
+    # base, as the plain undo does; a kept one is untouched.
     drop = torch.zeros((), dtype=torch.bool, device="cuda")
     undo_err = 0
-    for c, is_new, _, slot in done[:2]:
-        kept = [p.clone() for p in c]
-        hashset.undo_(c, slot, is_new, ~drop)
-        undo_err += sum(int((a != b).sum()) for a, b in zip(c, kept))
-        want = hashset.HashSet(*(p.clone() for p in c))
-        hashset.undo_plain(want, slot, is_new, drop)
-        hashset.undo_(c, slot, is_new, drop)
-        undo_err += sum(int((a != b).sum()) for a, b in zip(c, want))
-        undo_err += sum(int((a != b).sum()) for a, b in zip(c, base))
+    for _ in range(2):
+        c = _hash_copy(base)
+        _, _, filled = hashset.insert_(c, *lanes)
+        kept = c.slots.clone()
+        hashset.undo_(c, filled, ~drop)
+        undo_err += int((c.slots != kept).sum())
+        want = _hash_copy(c)
+        hashset.undo_plain(want, filled, drop)
+        hashset.undo_(c, filled, drop)
+        undo_err += int((c.slots != want.slots).sum()) + int((c.slots != base.slots).sum())
+        del c, want, kept, filled
     require(undo_err == 0, "hash: an undo left the table other than the base")
-    turn = iter(done[2:])
-
-    def undo_next():
-        c, is_new, _, slot = next(turn)
-        hashset.undo_(c, slot, is_new, drop)
-
-    undo_ms = timed_ms(undo_next, reps=1, queued=True)
-    del done, turn
-    plain_done = iter([(c, *hashset.insert_(c, *lanes)) for c in (fresh(), fresh(), fresh())])
-
-    def plain_undo_next():
-        c, is_new, _, slot = next(plain_done)
-        hashset.undo_plain(c, slot, is_new, drop)
-
-    undo_plain_ms = timed_ms(plain_undo_next, reps=1)
-    del plain_done
-    gc.collect()
-    torch.cuda.empty_cache()
-    ops = device_ops(lambda: hashset.insert_(base, *lanes), HASH_SYMBOL)
+    timing = hash_timing(base, lanes, plain=True)
     n_new = cases["rm9_widest"]["new"]
     insert_line = {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        **timing["insert"], "library_ms": None,
         "library_call": "none: no single PyTorch call inserts into a hash table",
-        "bound_ms": bound_ms(hash_bytes(lanes, n_new)), "bound_by": "bytes",
-        "device_launches_per_call": sum(op["per_call"] for op in ops.values()) if ops else "not measured",
-        "device_ops": ops, "C": HASH_TABLE, "m": m, "active": n_valid, "new": n_new,
+        "C": HASH_TABLE, "m": m, "active": n_valid, "new": n_new,
         "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
     }
-    undo_line = {
-        # The bound: is_new read once, each winner's slot read and its two
-        # words written once.
-        "ms": undo_ms, "plain_ms": undo_plain_ms, "library_ms": None,
-        "library_call": "none: index_add_ of the negated words would serialize on one slot",
-        "bound_ms": bound_ms(m + 24 * n_new), "bound_by": "bytes", "C": HASH_TABLE, "m": m,
-        "dropped": n_new, "max_abs_err": undo_err,
-    }
+    undo_line = {**timing["undo"], "C": HASH_TABLE, "m": m, "max_abs_err": undo_err}
     emit({"phase": "hashset_kernel", "cases": cases, **insert_line, "undo": undo_line})
     del base, small, lanes
     gc.collect()
@@ -2352,23 +2432,20 @@ def table_step_ms(model, dedup: str, c) -> dict:
     that level's own batch and table (:func:`level_batch`): the sorted and
     delta sets' insert and the gate's copy of the planes it made anew, the
     hash set's insert in place and its undo. Each call leaves the table as
-    it found it (a closed gate). Under hash, also the insert alone with its
-    bound, and the kernel against its plain version on that batch."""
+    it found it (a closed gate). Under hash, also the insert and the undo
+    alone with their bounds and device operations a call
+    (:func:`hash_timing`), and the kernel against its plain version on that
+    batch."""
     t, lanes, is_new, widest = level_batch(model, dedup, c)
     keep = torch.zeros((), dtype=torch.bool, device="cuda")
     extra = {}
     if dedup == "hash":
         def step():
-            new, _, slot = hashset.insert_(t, *lanes, c._max_probes)
-            hashset.undo_(t, slot, new, keep)
+            hashset.undo_(t, hashset.insert_(t, *lanes, c._max_probes)[2], keep)
 
-        # The insert alone: each timed call into a fresh copy of the table.
-        copies = iter([hashset.HashSet(t.key.clone(), t.val.clone(), t.ticket) for _ in range(7)])
+        # The insert and the undo alone, with their bounds and operations.
         extra = {"kernel": check_hash("widest_level", t, lanes),
-                 "insert_ms": timed_ms(lambda: hashset.insert_(next(copies), *lanes, c._max_probes),
-                                       reps=5, queued=True),
-                 "insert_bound_ms": bound_ms(hash_bytes(lanes, int(is_new.sum())))}
-        del copies
+                 **hash_timing(t, lanes, c._max_probes)}
     else:
         def step():
             nt, _, _ = c._ds.insert(t, *lanes)
@@ -2536,8 +2613,8 @@ def dedup_phase(main_model, main_warm, rng):
         require(c.metrics()["graph_captures"] == 0, f"rm=8 {dedup}: the profiled run captured graphs")
         busy = sum(ms for _, ms, _ in kernels)
         table_kernels = {k[:40]: ms for k, ms, _ in kernels
-                         if any(s in k for s in (MERGE_SYMBOL, HASH_SYMBOL, "elect_kernel",
-                                                 "commit_kernel", "exact_kernel"))}
+                         if any(s in k for s in (MERGE_SYMBOL, HASH_SYMBOL, "commit_kernel",
+                                                 "exact_kernel", "undo_kernel"))}
         out[f"rm8_{dedup}_profile"] = {
             "profiled_wall_s": wall, "levels": len(c.level_log),
             "device_busy_ms": busy if kernels else "not measured",

@@ -1,5 +1,5 @@
 // Open-addressing insert into the hash visited set, with the lowest-index
-// election.
+// election, and the gated level's undo of an insert.
 //
 // Replaces no TPU kernel: the JAX package's insert
 // (stateright_tpu/ops/hashset.py insert) is jitted JAX, a while_loop of
@@ -13,32 +13,41 @@
 // stored; overflow[i] says element i is unresolved after max_probes
 // advances past other keys.
 //
-// Planes: key [C] and val [C] int64, (hi << 32) | lo; ticket [C] int32,
-// INT_MAX at rest. Batch: four int64 word lanes [m] and active [m] bool.
-// Launches, all on `stream`:
-//   0. a memset of the exact-path flag;
-//   1. claim: each active element walks its window (its home slot and the
-//      max_probes - 1 after it), stops at its key, or CAS-claims the first
-//      empty slot, and records that slot; a claimer marks the slot's ticket
-//      with its index. An element that finds neither raises the flag;
-//   2. elect: each element whose slot was claimed in this batch (ticket
-//      below INT_MAX: a key new to the table) marks itself, takes
-//      atomicMin of its index on that ticket, and raises the flag if its
-//      window is occupied from end to end (it reads on from its slot: the
-//      slots before it are filled);
-//   3. commit: the marked element whose index equals its slot's ticket is
-//      the winner: is_new, its value written, the ticket reset. Another
-//      element of the slot reads the winner's index or INT_MAX, never its
-//      own;
-//   4. exact: one block, which returns at once unless the flag is raised.
-//      Then it clears the slots the batch filled (one winner each) and runs
-//      the reference's rounds exactly, claim buffer and all, so is_new,
-//      overflow and the slot layout are the reference's.
+// Layout: one 32-byte slot word a slot, [C, 4] int64, one sector:
+//   key = (hi << 32) | lo (0 = EMPTY), ticket (INT_MAX at rest),
+//   val = (val_hi << 32) | val_lo, and a pad word (0).
+// Key and ticket share a 16-byte half, which one atomic compare-and-swap
+// claims: (0, INT_MAX) -> (key, index). So a reader sees an empty slot, a
+// key that was there before the batch (ticket at rest: a hit) or a key
+// claimed in this batch with the least index so far (a duplicate), all in
+// one 16-byte read. Batch: four int64 word lanes [m] and active [m] bool.
 //
-// A fifth entry point, stpu_hashset_undo, clears the slots an insert's
-// winners filled unless a device flag says keep: the gated level's undo of
-// a level it does not commit (one byte read an element; two words written
-// a winner, only when the level is dropped).
+// The record of an insert, `filled` int32 [m + 2]: filled[0] the number of
+// slots the batch filled, filled[1] the exact-path flag (1 where it ran),
+// filled[2 .. 2 + filled[0]) those slots, in no order.
+//
+// Launches, all on `stream`:
+//   0. a memset of filled[0..1];
+//   1. claim, one pass over the batch, one lane a thread. Each active
+//      element reads its key words once, walks its window (its home slot
+//      and the max_probes - 1 after it) and stops at its key or CAS-claims
+//      the first empty slot with its index as the ticket. A duplicate of a key
+//      claimed in this batch lowers the ticket (atomicMin); a hit stops on
+//      its read. A block's claims gather in shared memory and go to the
+//      record with one atomicAdd a block. An element that finds neither its
+//      key nor an empty slot raises the flag;
+//   2. commit, over the record: the ticket names the winner, which is_new
+//      marks and whose value the slot takes; the ticket goes back to rest.
+//      The flag is raised where the winner's window is occupied from end to
+//      end (it reads on from the slot: the slots before it are filled);
+//   3. exact: one block, which returns at once unless the flag is raised.
+//      Then it clears the slots the record holds and runs the reference's
+//      rounds exactly, claim buffer and all, so is_new, overflow and the
+//      slot layout are the reference's; the record is made anew.
+//
+// stpu_hashset_undo clears the slots of a record unless a device flag says
+// keep: the gated level's undo of a level it does not commit (one 32-byte
+// sector written a winner, only when the level is dropped).
 //
 // Why the flag is enough: linear probing fills the same set of slots
 // whatever the order of the insertions, the reference's rounds are one such
@@ -54,15 +63,21 @@
 // that each of several distinct keys contending for one slot lands in may
 // differ (the CAS's arrival order).
 //
-// What bounds it on the H100: bytes and latency. The least an insert moves
+// What bounds it on the H100: random accesses. The least an insert moves
 // is its batch lanes read once, one 32-byte sector of the table read for
-// each active element and a key and a value written for each new key;
-// every such table access is random. Launches 1-3 each read an element's
-// slot again and its ticket twice; the window check, for new keys only,
-// reads on to the first empty slot (about one slot at the engine's load of
-// at most 1/4). The exact path is one block and slow; it
-// runs only where a window is full, which the engine's load rule makes
-// rare, and an overflowing level is retried at a larger table anyway.
+// each active element and, for each new key, its value words read and its
+// slot's sector written; every such table access is random, and the card
+// serves random sectors far below its streaming rate (chip_smoke.py's
+// `hashset_kernel` phase measures both rates at a 2^26-slot table: a
+// gather of one word an active lane, and the undo's whole-sector writes).
+// The claim pass reads each active element's sector once (a hit or a
+// duplicate settles there); the commit pass reads a new key's sector
+// again, its value words, and, for its window check, on to the first empty
+// slot (about one slot at the engine's load of at most 1/4).
+// tools/hashset_variants.py times variants of this file. The exact path
+// is one block and slow; it runs only where a window is full, which the
+// engine's load rule makes rare, and an overflowing level is retried at a
+// larger table anyway.
 
 #include <climits>
 #include <cstdint>
@@ -74,6 +89,9 @@ constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
 constexpr int kExactThreads = 1024;
 constexpr unsigned kGolden = 0x9E3779B1u;
+// A slot word's 64-bit words, and the ticket at rest.
+constexpr int kWords = 4, kTicket = 1, kVal = 2;
+constexpr unsigned long long kRest = INT_MAX;
 // Per-element state bits of the exact path.
 constexpr unsigned char kDone = 1, kMatch = 2, kCand = 4, kBump = 8;
 
@@ -82,106 +100,134 @@ __device__ __forceinline__ unsigned long long pack(long long hi, long long lo) {
          (static_cast<unsigned long long>(lo) & 0xFFFFFFFFull);
 }
 
-__device__ __forceinline__ unsigned long long home(long long hi, long long lo,
+__device__ __forceinline__ unsigned long long home(unsigned long long key,
                                                    unsigned long long mask) {
-  const unsigned h = static_cast<unsigned>(hi);
-  const unsigned l = static_cast<unsigned>(lo);
+  const unsigned h = static_cast<unsigned>(key >> 32);
+  const unsigned l = static_cast<unsigned>(key);
   return static_cast<unsigned long long>(h ^ (l * kGolden)) & mask;
 }
 
-__global__ void claim_kernel(unsigned long long* key, int* ticket, unsigned long long mask,
-                             const long long* hi, const long long* lo, const bool* active,
-                             long long m, int max_probes, bool* is_new, bool* overflow,
-                             long long* slot, int* flag) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < m;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+// Key and ticket of slot s in one 16-byte read from L2 (an L1 line could be
+// stale: other blocks claim slots meanwhile).
+__device__ __forceinline__ ulonglong2 read_half(const unsigned long long* slots,
+                                                unsigned long long s) {
+  return __ldcg(reinterpret_cast<const ulonglong2*>(slots + s * kWords));
+}
+
+// One 16-byte compare-and-swap of slot s's key and ticket (sm_90); returns
+// what the slot held.
+__device__ __forceinline__ ulonglong2 cas_half(unsigned long long* slots, unsigned long long s,
+                                               ulonglong2 want, ulonglong2 put) {
+  ulonglong2 old;
+  asm volatile(
+      "{\n\t.reg .b128 want128, put128, old128;\n\t"
+      "mov.b128 want128, {%2, %3};\n\t"
+      "mov.b128 put128, {%4, %5};\n\t"
+      "atom.relaxed.gpu.global.cas.b128 old128, [%6], want128, put128;\n\t"
+      "mov.b128 {%0, %1}, old128;\n\t}"
+      : "=l"(old.x), "=l"(old.y)
+      : "l"(want.x), "l"(want.y), "l"(put.x), "l"(put.y), "l"(slots + s * kWords)
+      : "memory");
+  return old;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    claim_kernel(unsigned long long* slots, unsigned long long mask, const long long* hi,
+                 const long long* lo, const bool* active, long long m, int max_probes,
+                 bool* is_new, bool* overflow, int* filled) {
+  __shared__ int claimed[kThreads];
+  __shared__ int n_claimed, base;
+  if (threadIdx.x == 0) n_claimed = 0;
+  __syncthreads();
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < m) {
     is_new[i] = false;
     overflow[i] = false;
-    slot[i] = -1;
-    if (!active[i]) continue;
+  }
+  if (i < m && active[i]) {
     const unsigned long long k = pack(hi[i], lo[i]);
-    unsigned long long s = home(hi[i], lo[i], mask);
-    long long at = -1;
+    const unsigned long long ticket = static_cast<unsigned long long>(i);
+    unsigned long long s = home(k, mask);
+    bool done = false;
     for (int p = 0; p < max_probes; ++p) {
-      // A stale read of 0 is settled by the CAS; a filled slot never changes.
-      unsigned long long cur = key[s];
-      if (cur == 0ull) {
-        cur = atomicCAS(&key[s], 0ull, k);
-        if (cur == 0ull) {
-          atomicMin(&ticket[s], static_cast<int>(i));
-          at = static_cast<long long>(s);
+      ulonglong2 c = read_half(slots, s);
+      if (c.x == 0ull) {
+        // A stale read of EMPTY is settled by the CAS; a filled key never
+        // changes within the batch.
+        c = cas_half(slots, s, make_ulonglong2(0ull, kRest), make_ulonglong2(k, ticket));
+        if (c.x == 0ull) {
+          claimed[atomicAdd(&n_claimed, 1)] = static_cast<int>(s);
+          done = true;
           break;
         }
       }
-      if (cur == k) {
-        at = static_cast<long long>(s);
+      if (c.x == k) {
+        // A ticket below rest: the key was claimed in this batch.
+        if (c.y != kRest && c.y > ticket) {
+          atomicMin(reinterpret_cast<long long*>(slots + s * kWords + kTicket),
+                    static_cast<long long>(ticket));
+        }
+        done = true;
         break;
       }
       s = (s + 1) & mask;
     }
-    slot[i] = at;
-    if (at < 0) *flag = 1;
+    if (!done) filled[1] = 1;
   }
+  __syncthreads();
+  if (threadIdx.x == 0) base = n_claimed ? atomicAdd(&filled[0], n_claimed) : 0;
+  __syncthreads();
+  if (threadIdx.x < n_claimed) filled[2 + base + threadIdx.x] = claimed[threadIdx.x];
 }
 
-__global__ void elect_kernel(const unsigned long long* key, int* ticket, unsigned long long mask,
-                             const long long* hi, const long long* lo, long long m,
-                             int max_probes, const long long* slot, unsigned char* fresh,
-                             int* flag) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < m;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long s = slot[i];
-    fresh[i] = s >= 0 && ticket[s] != INT_MAX;
-    if (!fresh[i]) continue;
-    atomicMin(&ticket[s], static_cast<int>(i));
-    const unsigned long long h = home(hi[i], lo[i], mask);
-    const unsigned long long before = (static_cast<unsigned long long>(s) - h) & mask;
-    unsigned long long w = (static_cast<unsigned long long>(s) + 1) & mask;
+__global__ void commit_kernel(unsigned long long* slots, unsigned long long mask,
+                              const long long* vh, const long long* vl, int max_probes,
+                              bool* is_new, int* filled) {
+  const long long n = filled[0];
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < n;
+       e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const unsigned long long s = static_cast<unsigned>(filled[2 + e]);
+    unsigned long long* w = slots + s * kWords;
+    const ulonglong2 kt = *reinterpret_cast<const ulonglong2*>(w);
+    const long long i = static_cast<long long>(kt.y);
+    is_new[i] = true;
+    w[kVal] = pack(vh[i], vl[i]);
+    w[kTicket] = kRest;
+    const unsigned long long before = (s - home(kt.x, mask)) & mask;
+    unsigned long long at = (s + 1) & mask;
     bool full = true;
     for (long long p = before + 1; p < max_probes; ++p) {
-      if (key[w] == 0ull) {
+      if (slots[at * kWords] == 0ull) {
         full = false;
         break;
       }
-      w = (w + 1) & mask;
+      at = (at + 1) & mask;
     }
-    if (full) *flag = 1;
+    if (full) filled[1] = 1;
   }
 }
 
-__global__ void commit_kernel(unsigned long long* val, int* ticket, const long long* vh,
-                              const long long* vl, long long m, const long long* slot,
-                              const unsigned char* fresh, bool* is_new) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < m;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    if (!fresh[i]) continue;
-    const long long s = slot[i];
-    if (ticket[s] != static_cast<int>(i)) continue;
-    is_new[i] = true;
-    val[s] = pack(vh[i], vl[i]);
-    ticket[s] = INT_MAX;
-  }
-}
-
-__global__ void exact_kernel(unsigned long long* key, unsigned long long* val,
-                             unsigned long long mask, const long long* hi, const long long* lo,
-                             const long long* vh, const long long* vl, const bool* active,
-                             long long m, int max_probes, bool* is_new, bool* overflow,
-                             long long* slot, int* probes, unsigned char* state, int* claim,
-                             long long claim_cap, const int* flag) {
-  if (*flag == 0) return;
+__global__ void exact_kernel(unsigned long long* slots, unsigned long long mask,
+                             const long long* hi, const long long* lo, const long long* vh,
+                             const long long* vl, const bool* active, long long m, int max_probes,
+                             bool* is_new, bool* overflow, int* slot, int* probes,
+                             unsigned char* state, int* claim, long long claim_cap, int* filled) {
+  if (filled[1] == 0) return;
   const int t = threadIdx.x;
   const int n = blockDim.x;
-  // Clear what launches 1-3 filled: each filled slot has one winner.
-  for (long long i = t; i < m; i += n) {
-    if (is_new[i]) {
-      key[slot[i]] = 0ull;
-      val[slot[i]] = 0ull;
-    }
+  // Clear what launches 1-2 filled (each slot of the record once); the
+  // rounds make the record anew.
+  const int n_filled = filled[0];
+  for (int e = t; e < n_filled; e += n) {
+    unsigned long long* w = slots + static_cast<unsigned long long>(filled[2 + e]) * kWords;
+    w[0] = 0ull;
+    w[kTicket] = kRest;
+    w[kVal] = 0ull;
   }
   __syncthreads();
+  if (t == 0) filled[0] = 0;
   for (long long i = t; i < m; i += n) {
-    slot[i] = static_cast<long long>(home(hi[i], lo[i], mask));
+    slot[i] = static_cast<int>(home(pack(hi[i], lo[i]), mask));
     probes[i] = 0;
     state[i] = active[i] ? 0 : kDone;
     is_new[i] = false;
@@ -198,7 +244,7 @@ __global__ void exact_kernel(unsigned long long* key, unsigned long long* val,
       unsigned char st = state[i] & kDone;
       if (!st && probes[i] < max_probes) {
         mine = 1;
-        const unsigned long long k = key[slot[i]];
+        const unsigned long long k = slots[static_cast<unsigned long long>(slot[i]) * kWords];
         if (k == 0ull) {
           st = kCand;
           atomicMin(&claim[static_cast<unsigned long long>(slot[i]) & cmask], static_cast<int>(i));
@@ -214,21 +260,22 @@ __global__ void exact_kernel(unsigned long long* key, unsigned long long* val,
     // Winners write; matches are done; blocked elements advance.
     for (long long i = t; i < m; i += n) {
       const unsigned char st = state[i];
-      const long long s = slot[i];
+      const unsigned long long s = static_cast<unsigned>(slot[i]);
       if (st & kMatch) {
         state[i] = kDone;
       } else if (st & kCand) {
-        if (claim[static_cast<unsigned long long>(s) & cmask] == static_cast<int>(i)) {
-          key[s] = pack(hi[i], lo[i]);
-          val[s] = pack(vh[i], vl[i]);
+        if (claim[s & cmask] == static_cast<int>(i)) {
+          slots[s * kWords] = pack(hi[i], lo[i]);
+          slots[s * kWords + kVal] = pack(vh[i], vl[i]);
           is_new[i] = true;
           state[i] = kDone;
+          filled[2 + atomicAdd(&filled[0], 1)] = static_cast<int>(s);
         } else {
           state[i] = 0;
         }
       } else if (st & kBump) {
         probes[i] += 1;
-        slot[i] = static_cast<long long>((static_cast<unsigned long long>(s) + 1) & mask);
+        slot[i] = static_cast<int>((s + 1) & mask);
         state[i] = 0;
       }
     }
@@ -237,81 +284,73 @@ __global__ void exact_kernel(unsigned long long* key, unsigned long long* val,
   for (long long i = t; i < m; i += n) overflow[i] = !(state[i] & kDone);
 }
 
-__global__ void undo_kernel(unsigned long long* key, unsigned long long* val, const long long* slot,
-                            const bool* is_new, const bool* keep, long long m) {
+__global__ void undo_kernel(unsigned long long* slots, const int* filled, const bool* keep) {
   if (*keep) return;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < m;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    if (is_new[i]) {
-      key[slot[i]] = 0ull;
-      val[slot[i]] = 0ull;
-    }
+  // Two threads a slot, one 16-byte half each: a warp's store covers whole
+  // sectors, which the card writes without reading them first.
+  const long long n = 2LL * filled[0];
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < n;
+       e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const unsigned long long s = static_cast<unsigned>(filled[2 + (e >> 1)]);
+    reinterpret_cast<ulonglong2*>(slots + s * kWords)[e & 1] =
+        make_ulonglong2(0ull, (e & 1) ? 0ull : kRest);
   }
 }
 
 unsigned grid_for(long long m) {
   const long long want = (m + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(want < kMaxBlocks ? want : kMaxBlocks);
+  return static_cast<unsigned>(want < 1 ? 1 : want < kMaxBlocks ? want : kMaxBlocks);
 }
 
 }  // namespace
 
 extern "C" {
 
-// key, val: [C] int64; ticket: [C] int32 (INT_MAX at rest); hi, lo, vh, vl:
-// [m] int64; active, is_new, overflow: [m] bool; slot: [m] int64; scratch:
-// probes [m] int32, state [m] uint8, claim [claim_cap] int32, flag one
-// int32. Five launches on `stream`. Returns the cudaError_t.
-int stpu_hashset_insert(void* key, void* val, void* ticket, long long c, const void* hi,
-                        const void* lo, const void* vh, const void* vl, const void* active,
-                        long long m, int max_probes, void* is_new, void* overflow, void* slot,
-                        void* probes, void* state, void* claim, long long claim_cap, void* flag,
-                        void* stream) {
-  if (m == 0) return 0;
-  if (c < 1 || (c & (c - 1)) || max_probes < 1 || claim_cap < 1 ||
-      (claim_cap & (claim_cap - 1)) || m > INT_MAX) {
+// slots: [C, 4] int64 slot words; hi, lo, vh, vl: [m] int64; active,
+// is_new, overflow: [m] bool; filled: [m + 2] int32, the record; scratch of
+// the exact path: slot and probes [m] int32, state [m] uint8, claim
+// [claim_cap] int32. Four operations on `stream` (a memset and three
+// kernels). Returns the cudaError_t.
+int stpu_hashset_insert(void* slots, long long c, const void* hi, const void* lo, const void* vh,
+                        const void* vl, const void* active, long long m, int max_probes,
+                        void* is_new, void* overflow, void* filled, void* slot, void* probes,
+                        void* state, void* claim, long long claim_cap, void* stream) {
+  if (c < 1 || (c & (c - 1)) || c > (1LL << 31) || max_probes < 1 || claim_cap < 1 ||
+      (claim_cap & (claim_cap - 1)) || m >= INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(filled, 0, 2 * sizeof(int), s);
+  if (err != cudaSuccess || m == 0) return static_cast<int>(err);
   const unsigned long long mask = static_cast<unsigned long long>(c) - 1;
-  const unsigned blocks = grid_for(m);
-  auto* k64 = static_cast<unsigned long long*>(key);
-  auto* v64 = static_cast<unsigned long long*>(val);
-  auto* tk = static_cast<int*>(ticket);
+  auto* sw = static_cast<unsigned long long*>(slots);
   auto* h = static_cast<const long long*>(hi);
   auto* l = static_cast<const long long*>(lo);
+  auto* v_hi = static_cast<const long long*>(vh);
+  auto* v_lo = static_cast<const long long*>(vl);
   auto* a = static_cast<const bool*>(active);
   auto* nw = static_cast<bool*>(is_new);
-  auto* sl = static_cast<long long*>(slot);
-  auto* fl = static_cast<int*>(flag);
-  cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  claim_kernel<<<blocks, kThreads, 0, s>>>(k64, tk, mask, h, l, a, m, max_probes, nw,
-                                           static_cast<bool*>(overflow), sl, fl);
+  auto* ov = static_cast<bool*>(overflow);
+  auto* rec = static_cast<int*>(filled);
+  const unsigned tiles = static_cast<unsigned>((m + kThreads - 1) / kThreads);
+  claim_kernel<<<tiles, kThreads, 0, s>>>(sw, mask, h, l, a, m, max_probes, nw, ov, rec);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  // The exact path's state bytes serve launches 2-3 as the fresh-key marks.
-  auto* fresh = static_cast<unsigned char*>(state);
-  elect_kernel<<<blocks, kThreads, 0, s>>>(k64, tk, mask, h, l, m, max_probes, sl, fresh, fl);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  commit_kernel<<<blocks, kThreads, 0, s>>>(v64, tk, static_cast<const long long*>(vh),
-                                            static_cast<const long long*>(vl), m, sl, fresh, nw);
+  commit_kernel<<<grid_for(m), kThreads, 0, s>>>(sw, mask, v_hi, v_lo, max_probes, nw, rec);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   exact_kernel<<<1, kExactThreads, 0, s>>>(
-      k64, v64, mask, h, l, static_cast<const long long*>(vh), static_cast<const long long*>(vl),
-      a, m, max_probes, nw, static_cast<bool*>(overflow), sl, static_cast<int*>(probes),
-      static_cast<unsigned char*>(state), static_cast<int*>(claim), claim_cap, fl);
+      sw, mask, h, l, v_hi, v_lo, a, m, max_probes, nw, ov, static_cast<int*>(slot),
+      static_cast<int*>(probes), static_cast<unsigned char*>(state), static_cast<int*>(claim),
+      claim_cap, rec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// key, val: [C] int64; slot: [m] int64 and is_new: [m] bool of an insert;
-// keep: one bool on the device. One launch on `stream`.
-int stpu_hashset_undo(void* key, void* val, const void* slot, const void* is_new,
-                      const void* keep, long long m, void* stream) {
-  if (m == 0) return 0;
-  undo_kernel<<<grid_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned long long*>(key), static_cast<unsigned long long*>(val),
-      static_cast<const long long*>(slot), static_cast<const bool*>(is_new),
-      static_cast<const bool*>(keep), m);
+// slots: [C, 4] int64; filled: an insert's record (int32, at least m + 2
+// long); keep: one bool on the device. One launch on `stream`.
+int stpu_hashset_undo(void* slots, const void* filled, const void* keep, long long m,
+                      void* stream) {
+  undo_kernel<<<grid_for(2 * m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(slots), static_cast<const int*>(filled),
+      static_cast<const bool*>(keep));
   return static_cast<int>(cudaGetLastError());
 }
 

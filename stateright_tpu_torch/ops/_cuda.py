@@ -49,10 +49,10 @@ _SIGNATURES = {
     },
     "hashset": {
         "stpu_hashset_insert": (
-            [_P, _P, _P, _I64] + [_P] * 5 + [_I64, _INT] + [_P] * 6 + [_I64, _P, _P],
+            [_P, _I64] + [_P] * 5 + [_I64, _INT] + [_P] * 7 + [_I64, _P],
             _INT,
         ),
-        "stpu_hashset_undo": ([_P] * 5 + [_I64, _P], _INT),
+        "stpu_hashset_undo": ([_P] * 3 + [_I64, _P], _INT),
     },
 }
 

@@ -552,9 +552,9 @@ class XlaChecker(Checker):
             table, is_new, overflow = hashset.insert(table, hi, lo, val_hi, val_lo, active,
                                                      self._max_probes)
             return table, is_new, overflow.any(), None
-        is_new, overflow, slot = hashset.insert_(table, hi, lo, val_hi, val_lo, active,
-                                                 self._max_probes)
-        return table, is_new, overflow.any(), functools.partial(hashset.undo_, table, slot, is_new)
+        is_new, overflow, filled = hashset.insert_(table, hi, lo, val_hi, val_lo, active,
+                                                   self._max_probes)
+        return table, is_new, overflow.any(), functools.partial(hashset.undo_, table, filled)
 
     def _superstep(self, frontier, f_ebits, f_count, table, disc_found, disc_fp, cand_cap: int,
                    out_cap: Optional[int] = None, gate=None):

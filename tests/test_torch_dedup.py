@@ -191,11 +191,11 @@ def test_hashset_undo_clears_exactly_what_the_insert_filled():
     hashset.insert_(hs, *_port(_batch(rng, 80, 2**32)))
     before = [p.clone() for p in hs]
     batch = _port(_batch(rng, 120, 200))
-    is_new, _, slot = hashset.insert_(hs, *batch)
-    assert int(is_new.sum()) > 0
-    hashset.undo_(hs, slot, is_new, torch.tensor(True))
+    is_new, _, filled = hashset.insert_(hs, *batch)
+    assert int(is_new.sum()) > 0 and int(filled[0]) == int(is_new.sum())
+    hashset.undo_(hs, filled, torch.tensor(True))
     after_keep = [p.clone() for p in hs]
-    hashset.undo_(hs, slot, is_new, torch.tensor(False))
+    hashset.undo_(hs, filled, torch.tensor(False))
     assert all(torch.equal(a, b) for a, b in zip(hs, before))
     assert not torch.equal(after_keep[0], before[0])
 
@@ -503,13 +503,13 @@ def test_the_gated_level_reads_nothing_on_the_host(monkeypatch, dedup):
         m = hi.shape[0]
         return (torch.empty(m, dtype=torch.bool, device=hi.device),
                 torch.empty(m, dtype=torch.bool, device=hi.device),
-                torch.empty(m, dtype=DTYPE, device=hi.device))
+                torch.empty(m + 2, dtype=torch.int32, device=hi.device))
 
     c = PackedTwoPhaseSys(3).checker().spawn_xla(dedup=dedup, **CPU)
     monkeypatch.setattr(port_xla, "compact", fake_compact)
     monkeypatch.setattr(deltaset, "merge_insert", fake_merge)
     monkeypatch.setattr(hashset, "insert_", fake_insert)
-    monkeypatch.setattr(hashset, "undo_", lambda hs, slot, is_new, keep: None)
+    monkeypatch.setattr(hashset, "undo_", lambda hs, filled, keep: None)
     meta = torch.device("meta")
     monkeypatch.setattr(c, "_device", meta)
     carry = graphs.Carry(meta, c._W, c._P, 32, 1024, dedup=dedup)
