@@ -116,9 +116,22 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    rows bitwise against its host twin and its CPU run; and a symmetric rm=8
    checkpoint saved on the CPU and resumed on the card, and the other way,
    refused without symmetry;
-12. prints the ``{"kernels": [...]}`` line (launches summed over every
+12. runs every model's ``check`` command line (``cli``) in a fresh
+   process each, the module's ``__main__`` as ``python -m`` runs it, with
+   the kernels' launch counters printed at exit: ``two_phase_commit check
+   8``, ``paxos check 2``, ``single_copy_register check 3`` and
+   ``linearizable_register check 2 ordered``, each exiting 0 with its
+   pinned ``Done.`` counts, its wall from process start printed; and
+   observability (``obs``): rm=8 cold on a fresh model instance, then warm
+   with everything off, on (a span trace, a heartbeat, a metrics series
+   every level, the phase split), off and on, each wall printed, the off
+   runs holding ``NULL_TRACER`` and giving the on runs' logs; the trace,
+   heartbeat and series held against ``dispatch_log``, the Chrome export
+   and an OpenMetrics render of the final snapshot parsed back; once more
+   under ``dedup="hash"``;
+13. prints the ``{"kernels": [...]}`` line (launches summed over every
    main-path run: rm=8, Paxos 3c/3s, single-copy-register, the
-   host-verified runs and the paths of items 9 to 11, each also by path)
+   host-verified runs and the paths of items 9 to 12, each also by path)
    and, last, the device line.
 
 Every line but the nvidia-smi one is a JSON object. Any failed check
@@ -127,6 +140,7 @@ raises, so the script exits non-zero.
 
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import multiprocessing
@@ -142,7 +156,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
-from stateright_tpu_torch import PathRecorder, graphs
+from stateright_tpu_torch import PathRecorder, graphs, obs
 from stateright_tpu_torch.audit import audit_table
 from stateright_tpu_torch.checkpoint import (
     PAYLOAD_KEYS,
@@ -165,6 +179,7 @@ from stateright_tpu_torch.models.single_copy_register import (
 )
 from stateright_tpu_torch.core import Property
 from stateright_tpu_torch.models.two_phase_commit import PackedTwoPhaseSys
+from stateright_tpu_torch.obs import heartbeat, promexport
 from stateright_tpu_torch.ops import _cuda, deltaset, hashset, sortedset
 from stateright_tpu_torch.ops.compact import compact, compact_plain
 from stateright_tpu_torch.ops.merge import merge_insert, merge_insert_plain
@@ -1588,6 +1603,174 @@ def autockpt_rm8_phase(model) -> dict:
     return launches
 
 
+#: The ``cli`` phase's command lines: the module, its arguments and the
+#: ``(generated, unique)`` its ``Done.`` line must print (the last the JAX
+#: package's ``PackedAbdOrdered(2, 2)`` counts, ``EXPECTED_ABD``).
+CLI_COMMANDS = (
+    ("two_phase_commit", ("check", "8"), EXPECTED_2PC[8]),
+    ("paxos", ("check", "2"), EXPECTED_PAXOS2),
+    ("single_copy_register", ("check", "3"), EXPECTED_SCR3),
+    ("linearizable_register", ("check", "2", "ordered"), EXPECTED_ABD[("ordered", 2)][:2]),
+)
+#: ``python -c CLI_BOOT <module> <args>``: the module's ``__main__`` as
+#: ``python -m`` runs it, then the kernels' launch counters as one JSON
+#: line on stderr at exit.
+CLI_BOOT = """
+import atexit, json, runpy, sys
+from stateright_tpu_torch.ops import hashset
+from stateright_tpu_torch.ops.compact import compact
+from stateright_tpu_torch.ops.merge import merge_insert
+atexit.register(lambda: print(json.dumps({"launches": {
+    "compact": compact.launches, "merge_insert": merge_insert.launches,
+    "hashset_insert": hashset.insert_.launches, "hashset_undo": hashset.undo_.launches,
+}}), file=sys.stderr, flush=True))
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+DONE_LINE = r"^Done\. states=(\d+), unique=(\d+), depth=(\d+), sec=(\d+)$"
+
+
+def cli_phase() -> dict:
+    """Each model's ``check`` command line in a fresh process on the card,
+    one after another: exit 0, the pinned counts, the kernels of the path
+    launched; the wall from process start (torch's import, the card's
+    start and a cold check)."""
+    import re
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    lines, launches = {}, {}
+    for module, args, pins in CLI_COMMANDS:
+        name = f"{module} {' '.join(args)}"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_BOOT, f"stateright_tpu_torch.models.{module}", *args],
+            cwd=root, capture_output=True, text=True, timeout=600,
+        )
+        wall = time.perf_counter() - t0
+        out = proc.stdout.splitlines()
+        require(proc.returncode == 0,
+                f"cli {name}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        done = [m for m in (re.match(DONE_LINE, line) for line in out) if m]
+        require(len(done) == 1, f"cli {name}: Done. lines {out[-5:]}")
+        counts = tuple(int(x) for x in done[0].groups())
+        require(counts[:2] == pins, f"cli {name}: counts {counts[:2]} != {pins}")
+        ran = json.loads(proc.stderr.strip().splitlines()[-1])["launches"]
+        require(ran["compact"] > 0 and ran["merge_insert"] > 0, f"cli {name}: launches {ran}")
+        launches[f"cli_{module}"] = {k: n for k, n in ran.items() if n}
+        lines[name] = {"wall_s": wall, "first_line": out[0], "done": done[0].group(0),
+                       "generated": counts[0], "unique": counts[1], "max_depth": counts[2],
+                       "launches": ran}
+    emit({"phase": "cli", "commands": lines})
+    return launches
+
+
+def obs_paths(tag: str) -> dict:
+    """Files of one observed run under the phase's temporary directory."""
+    d = os.path.join(CKPT_DIR, "obs")
+    return {k: os.path.join(d, f"{tag}.{k}") for k in ("trace", "hb", "series", "chrome")}
+
+
+def obs_kwargs(paths: dict) -> dict:
+    """Every observability knob of ``spawn_xla`` on, into ``paths``."""
+    return dict(trace=paths["trace"], heartbeat=paths["hb"], metrics_to=paths["series"],
+                metrics_every=1, phases=True)
+
+
+def obs_audit(c, paths: dict, what: str) -> dict:
+    """An observed run's trace, heartbeat and series against its own logs:
+    one ``dispatch`` span a dispatch with its bucket and committed levels,
+    four phase spans each, as many ``grow_table`` and ``delta_flush``
+    spans as the counters, the heartbeat's ``seq`` the dispatches, the
+    series' last row the final counts; the Chrome export, and an
+    OpenMetrics render of the final snapshot parsed back. Returns the span
+    counts and the widest block's phase split."""
+    with open(paths["trace"]) as fh:
+        spans = [json.loads(line) for line in fh]
+    names = collections.Counter(r["name"] for r in spans)
+    disp = [r for r in spans if r["name"] == "dispatch"]
+    m = c.metrics()
+    require([(r["attrs"]["bucket"], r["attrs"]["committed"]) for r in disp]
+            == [tuple(d) for d in c.dispatch_log], f"{what}: dispatch spans against dispatch_log")
+    require(len(c.phase_log) == len(disp), f"{what}: phase_log {len(c.phase_log)}")
+    require(all(names[f"phase:{p}"] == len(disp) for p in XlaChecker.PHASE_NAMES),
+            f"{what}: phase spans {dict(names)}")
+    require(names["grow_table"] == m["table_grows"] and names["delta_flush"] == m["delta_flushes"],
+            f"{what}: growth and flush spans {dict(names)}")
+    beat = heartbeat.read(paths["hb"])
+    require(beat["seq"] == len(c.dispatch_log) and beat["phase"] == "idle"
+            and beat["states"] == c.state_count(), f"{what}: heartbeat {beat}")
+    rows = obs.read_series(paths["series"])
+    require(rows and [r["seq"] for r in rows] == list(range(len(rows)))
+            and rows[-1]["metrics"]["state_count"] == c.state_count(),
+            f"{what}: series of {len(rows)} rows")
+    widest = max(range(len(disp)), key=lambda i: (c.phase_log[i]["bucket"],
+                                                   c.phase_log[i]["committed"]))
+    split = {p: c.phase_log[widest][p] for p in XlaChecker.PHASE_NAMES}
+    require(sum(split.values()) <= disp[widest]["dur"] + 1e-5, f"{what}: phases {split}")
+    events = obs.export_chrome(paths["trace"], paths["chrome"])
+    with open(paths["chrome"]) as fh:
+        require(len(json.load(fh)["traceEvents"]) == events == len(spans) - 1,
+                f"{what}: Chrome events {events}")
+    parsed = promexport.parse_openmetrics(
+        promexport.render_openmetrics(promexport.engine_samples(m)))
+    labels = frozenset({"engine": "xla", "dedup": m["dedup"]}.items())
+    require(parsed[("stpu_state_count_total", labels)] == c.state_count(),
+            f"{what}: OpenMetrics state count")
+    return {"spans": dict(names), "heartbeat_seq": beat["seq"], "series_rows": len(rows),
+            "widest_block": {"bucket": c.phase_log[widest]["bucket"],
+                             "committed": c.phase_log[widest]["committed"],
+                             "dispatch_s": disp[widest]["dur"], **split},
+            "phase_totals_s": {p: sum(r[p] for r in c.phase_log) for p in XlaChecker.PHASE_NAMES},
+            "chrome_events": events, "openmetrics_samples": len(parsed)}
+
+
+def obs_phase() -> dict:
+    """rm=8 on a fresh model instance: cold with observability off, then
+    warm off, on, off, on (each exact, no warm capture; the off runs hold
+    ``NULL_TRACER``, no heartbeat, no recorder and no phase rows, and equal
+    the on runs level by level and block by block), each observed run
+    audited by :func:`obs_audit`; then one observed run under
+    ``dedup="hash"``."""
+    model = PackedTwoPhaseSys(8)
+    cold, cold_wall, cold_launches = drive(model)
+    require((cold.state_count(), cold.unique_state_count()) == EXPECTED_2PC[8], "obs: cold counts")
+    walls = {"off": [], "on": []}
+    audits, runs = [], []
+    launches = {"obs_rm8": dict(cold_launches)}
+    os.makedirs(os.path.dirname(obs_paths("")["trace"]), exist_ok=True)
+    for i, mode in enumerate(("off", "on", "off", "on")):
+        paths = obs_paths(f"rm8_warm{i}")
+        files = set(os.listdir(os.path.dirname(paths["trace"])))
+        c, wall, ran = drive(model, **(obs_kwargs(paths) if mode == "on" else {}))
+        what = f"obs warm {i} ({mode})"
+        require((c.state_count(), c.unique_state_count()) == EXPECTED_2PC[8], f"{what}: counts")
+        require(c.metrics()["graph_captures"] == 0, f"{what}: captured graphs")
+        for k, v in ran.items():
+            launches["obs_rm8"][k] += v
+        if mode == "off":
+            require(c._tracer is obs.NULL_TRACER and c._heartbeat is None and c._recorder is None
+                    and not c.phase_log
+                    and set(os.listdir(os.path.dirname(paths["trace"]))) == files,
+                    f"{what}: observability off")
+        else:
+            audits.append(obs_audit(c, paths, what))
+        walls[mode].append(wall)
+        runs.append(c)
+    require(all(c.level_log == runs[0].level_log and c.dispatch_log == runs[0].dispatch_log
+                for c in runs), "obs: warm runs with and without observability differ")
+    audited(runs[-1], "obs")
+    paths = obs_paths("rm8_hash")
+    h, hash_wall, hash_launches = drive(model, dedup="hash", **obs_kwargs(paths))
+    require((h.state_count(), h.unique_state_count()) == EXPECTED_2PC[8], "obs hash: counts")
+    hash_line = dedup_line(h, hash_wall, hash_launches, "hash", "obs hash")
+    launches["obs_rm8_hash"] = hash_launches
+    emit({"phase": "obs", "cold_wall_s": cold_wall, "warm_off_s": walls["off"],
+          "warm_on_s": walls["on"], "dispatches": len(runs[0].dispatch_log),
+          "levels": len(runs[0].level_log), "audits": audits,
+          "hash": {**hash_line, "audit_obs": obs_audit(h, paths, "obs hash")}})
+    return launches
+
+
 def cpu_card_checkpoint_phase() -> dict:
     """2pc rm=5 saved at depth 6 on the CPU and resumed on the card, and
     saved at depth 6 on the card and resumed on the CPU: both files hold the
@@ -2702,11 +2885,15 @@ def main() -> int:
 
 def run_phases() -> int:
     device_phase()
+    # The command lines first, while this process holds little of the card.
+    cli_launches = cli_phase()
     small_phase()
     model, checker, launches, ladder = main_path_phase()
     new_paths = {
         "checkpoint_rm8": checkpoint_rm8_phase(model, checker),
         "autockpt_rm8": autockpt_rm8_phase(model),
+        **cli_launches,
+        **obs_phase(),
     }
     repeat_and_profile_phase(model)
     host_split_phase()

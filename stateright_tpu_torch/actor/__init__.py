@@ -1,16 +1,19 @@
 """Actor framework: event-driven actors that can be model checked.
 
 The port's own copy of ``stateright_tpu/actor/__init__.py`` (stateright's
-``src/actor.rs``), less the UDP runtime (``spawn``, with ``Id``'s socket
-addresses) and ``ScriptActor``, which wait for a later slice:
+``src/actor.rs``):
 
 - :class:`Actor` — ``on_start``/``on_msg``/``on_timeout`` handlers emitting
   :class:`Command`\\ s through an :class:`Out` buffer.
-- :class:`Id` — actor address; an index for checked models.
+- :class:`Id` — actor address; an index for checked models, an encoded
+  IPv4 socket address for spawned actors (spawn.rs:10-34), the same int
+  as the reference's.
 - :class:`ActorModel` — adapts a system of actors to the ``Model`` interface
   so every checker engine (including ``spawn_xla``) can explore it.
 - :class:`Network` — the in-state message collection (ordered / unordered
   duplicating / unordered non-duplicating).
+- :class:`ScriptActor` — sends a script of messages, one per delivery.
+- ``spawn()`` — the real-network UDP runtime (``actor/spawn.py``).
 
 Design deltas from the reference, intentional and Python-idiomatic:
 
@@ -31,11 +34,29 @@ from .timers import Timers
 
 
 class Id(int):
-    """Uniquely identifies an actor: an index for model-checked actors
-    (actor.rs:108-156)."""
+    """Uniquely identifies an actor.  An index for model-checked actors; an
+    encoded IPv4 address+port for spawned actors (actor.rs:108-156)."""
 
     def __repr__(self) -> str:
         return f"Id({int(self)})"
+
+    @staticmethod
+    def vec_from(ids: Iterable[Any]) -> List["Id"]:
+        return [Id(i) for i in ids]
+
+    @staticmethod
+    def from_addr(ip: str, port: int) -> "Id":
+        """Encodes ``ip:port`` in the low 6 bytes (spawn.rs:10-34)."""
+        packed = 0
+        for part in ip.split("."):
+            packed = (packed << 8) | int(part)
+        return Id((packed << 16) | port)
+
+    def to_addr(self) -> Tuple[str, int]:
+        port = int(self) & 0xFFFF
+        ip_num = (int(self) >> 16) & 0xFFFFFFFF
+        ip = ".".join(str((ip_num >> s) & 0xFF) for s in (24, 16, 8, 0))
+        return ip, port
 
 
 class Send(NamedTuple):
@@ -170,6 +191,31 @@ class Actor:
         return type(self).__name__
 
 
+class ScriptActor(Actor):
+    """Sends a series of ``(Id, msg)`` pairs in sequence, waiting for a
+    message delivery between each — useful for driving actor systems in
+    tests. The duck-typed rendering of the reference's ``Actor`` impl for
+    ``Vec<(Id, Msg)>`` (actor.rs:495-527); state is the next script index.
+    """
+
+    def __init__(self, script):
+        self.script = list(script)
+
+    def on_start(self, id: Id, out: Out) -> int:
+        if self.script:
+            dst, msg = self.script[0]
+            out.send(dst, msg)
+            return 1
+        return 0
+
+    def on_msg(self, id: Id, state: StateRef, src: Id, msg: Any, out: Out) -> None:
+        i = state.get()
+        if i < len(self.script):
+            dst, nxt = self.script[i]
+            out.send(dst, nxt)
+            state.set(i + 1)
+
+
 from .model import (  # noqa: E402  (re-exports, mirroring actor.rs:99-106)
     ActorModel,
     ActorModelAction,
@@ -178,6 +224,7 @@ from .model import (  # noqa: E402  (re-exports, mirroring actor.rs:99-106)
     TimeoutAction,
 )
 from .model_state import ActorModelState  # noqa: E402
+from .spawn import spawn  # noqa: E402
 
 __all__ = [
     "Actor",
@@ -191,6 +238,7 @@ __all__ = [
     "Id",
     "Network",
     "Out",
+    "ScriptActor",
     "Send",
     "SetTimer",
     "StateRef",
@@ -201,4 +249,5 @@ __all__ = [
     "majority",
     "model_peers",
     "model_timeout",
+    "spawn",
 ]

@@ -1,9 +1,9 @@
 """ActorModel: adapts a system of actors to the ``Model`` interface.
 
 The port's own copy of ``stateright_tpu/actor/model.py`` (stateright's
-``src/actor/model.rs``), less the Explorer's display hooks
-(``format_step``, ``as_svg``), which wait for the Explorer. The model's
-nondeterminism is exactly stateright's: for every deliverable envelope, a ``Deliver``
+``src/actor/model.rs``), with the Explorer's display hooks ``format_step``
+and ``as_svg``, whose strings equal the reference's for the same path. The
+model's nondeterminism is exactly stateright's: for every deliverable envelope, a ``Deliver``
 action (plus a ``Drop`` when the network is lossy); for every set timer, a
 ``Timeout``.  History ``H`` is a TLA-style auxiliary variable updated by
 ``record_msg_in``/``record_msg_out`` — consistency testers ride in it.
@@ -256,3 +256,104 @@ class ActorModel(Model):
         if isinstance(action, DeliverAction):
             return f"{action.src!r} → {action.msg!r} → {action.dst!r}"
         return repr(action)
+
+    def format_step(self, last_state: ActorModelState, action: Any) -> Optional[str]:
+        from . import Out, StateRef
+
+        if isinstance(action, DropAction):
+            return f"DROP: {action.envelope!r}"
+        if isinstance(action, DeliverAction):
+            index = int(action.dst)
+            if index >= len(last_state.actor_states):
+                return None
+            ref = StateRef(last_state.actor_states[index])
+            out = Out()
+            self.actors[index].on_msg(action.dst, ref, action.src, action.msg, out)
+        elif isinstance(action, TimeoutAction):
+            index = int(action.id)
+            ref = StateRef(last_state.actor_states[index])
+            out = Out()
+            self.actors[index].on_timeout(action.id, ref, action.timer, out)
+        else:
+            return None
+        last = last_state.actor_states[index]
+        lines = [f"OUT: {out!r}", ""]
+        if ref.changed:
+            lines += [f"NEXT_STATE: {ref.get()!r}", "", f"PREV_STATE: {last!r}"]
+        else:
+            lines += [f"UNCHANGED: {last!r}"]
+        return "\n".join(lines)
+
+    def as_svg(self, path) -> Optional[str]:
+        """Sequence-diagram SVG for an actor-system path (model.rs:424-549)."""
+        from . import Send, Out, StateRef
+
+        pairs = path.into_vec()
+        actor_count = len(path.last_state().actor_states)
+
+        def plot(x, y):
+            return x * 100, y * 30
+
+        svg_w, svg_h = plot(actor_count, len(pairs))
+        svg_w += 300  # extra width for event labels
+        parts = [
+            f"<svg version='1.1' baseProfile='full' width='{svg_w}' height='{svg_h}' "
+            f"viewbox='-20 -20 {svg_w + 20} {svg_h + 20}' "
+            f"xmlns='http://www.w3.org/2000/svg'>",
+            "<defs><marker class='svg-event-shape' id='arrow' markerWidth='12' "
+            "markerHeight='10' refX='12' refY='5' orient='auto'>"
+            "<polygon points='0 0, 12 5, 0 10' /></marker></defs>",
+        ]
+        for i in range(actor_count):
+            (x1, y1), (x2, y2) = plot(i, 0), plot(i, len(pairs))
+            parts.append(
+                f"<line x1='{x1}' y1='{y1}' x2='{x2}' y2='{y2}' class='svg-actor-timeline' />"
+            )
+            parts.append(f"<text x='{x1}' y='{y1}' class='svg-actor-label'>{i}</text>")
+
+        send_time = {}
+        for time, (state, action) in enumerate(pairs, start=1):
+            if isinstance(action, DeliverAction):
+                src_time = send_time.get((action.src, action.dst, action.msg), 0)
+                x1, y1 = plot(int(action.src), src_time)
+                x2, y2 = plot(int(action.dst), time)
+                parts.append(
+                    f"<line x1='{x1}' x2='{x2}' y1='{y1}' y2='{y2}' "
+                    f"marker-end='url(#arrow)' class='svg-event-line' />"
+                )
+                index = int(action.dst)
+                if index < len(state.actor_states):
+                    ref = StateRef(state.actor_states[index])
+                    out = Out()
+                    self.actors[index].on_msg(action.dst, ref, action.src, action.msg, out)
+                    for c in out.commands:
+                        if isinstance(c, Send):
+                            send_time[(action.dst, c.dst, c.msg)] = time
+            elif isinstance(action, TimeoutAction):
+                x, y = plot(int(action.id), time)
+                parts.append(
+                    f"<circle cx='{x}' cy='{y}' r='10' class='svg-event-shape' />"
+                )
+                index = int(action.id)
+                if index < len(state.actor_states):
+                    ref = StateRef(state.actor_states[index])
+                    out = Out()
+                    self.actors[index].on_timeout(action.id, ref, action.timer, out)
+                    for c in out.commands:
+                        if isinstance(c, Send):
+                            send_time[(action.id, c.dst, c.msg)] = time
+
+        for time, (_state, action) in enumerate(pairs, start=1):
+            if isinstance(action, DeliverAction):
+                x, y = plot(int(action.dst), time)
+                parts.append(
+                    f"<text x='{x}' y='{y}' class='svg-event-label'>{action.msg!r}</text>"
+                )
+            elif isinstance(action, TimeoutAction):
+                x, y = plot(int(action.id), time)
+                parts.append(
+                    f"<text x='{x}' y='{y}' class='svg-event-label'>"
+                    f"Timeout({action.timer!r})</text>"
+                )
+        parts.append("</svg>")
+        return "\n".join(parts)

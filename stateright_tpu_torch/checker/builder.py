@@ -81,7 +81,23 @@ class CheckerBuilder:
         grows the table and runs again). Under symmetry the engine
         canonicalizes through the model's ``symmetry_spec`` or
         ``packed_representative``, and raises ``SymmetryUnsupported`` for
-        a model with neither."""
+        a model with neither.
+
+        ``compaction`` ("auto" or "pallas", both the CUDA kernel
+        ``csrc/compact.cu``; "gather", "sort" and "bsearch" raise, queued
+        in ROADMAP A) and ``ladder`` ("auto" = ``STPU_LADDER`` or "jump",
+        which extrapolates the frontier's growth past bucket rungs; "ramp"
+        steps one rung per frontier overflow). Observability, off by
+        default and never inside a captured graph (``obs/``): ``trace``
+        (a span JSONL path or a ``Tracer``; env ``STPU_TRACE``, and
+        ``STPU_TRACE_CHROME`` exports Chrome trace JSON at exit),
+        ``heartbeat`` (a JSON file rewritten around every dispatch; env
+        ``STPU_HEARTBEAT``), ``metrics_to``/``metrics_every``/
+        ``metrics_keep`` (rotating rows of ``metrics()`` at block
+        boundaries; env ``STPU_METRICS_TO``/``_EVERY``/``_KEEP``) and
+        ``phases`` (env ``STPU_PHASES``; needs a live tracer: each dispatch
+        split into ``host_prep``, ``enqueue``, ``device_compute`` and
+        ``readback`` sub-spans and a ``checker.phase_log`` row)."""
         from ..xla import XlaChecker
 
         return XlaChecker(self, **kwargs)

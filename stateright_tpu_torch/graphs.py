@@ -46,6 +46,7 @@ holds, and :meth:`Program.run` adds them per replay.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -260,7 +261,7 @@ def cache_for(model, device: torch.device) -> ProgramCache:
 
 
 def replay_block(run_level: Callable[[Optional[np.ndarray]], None], s: torch.Tensor,
-                 loaded: np.ndarray, budget: int) -> int:
+                 loaded: np.ndarray, budget: int, drain: Optional[list] = None) -> int:
     """Run the gated levels of a block: up to ``budget`` committed levels,
     plus one replay for each candidate-ladder fall-through (a forced
     full-width level either commits or exits, so there are at most
@@ -278,7 +279,12 @@ def replay_block(run_level: Callable[[Optional[np.ndarray]], None], s: torch.Ten
     the host waits on level ``i``'s event and stops once its ``live`` reads
     false. With ``LOOKAHEAD`` 1 that wait is on the predecessor, so every
     level is given its predecessor's scalars and no synchronisation is
-    added for the choice of rung."""
+    added for the choice of rung.
+
+    ``drain`` (the dispatch-phase split, when on): a list that gets the
+    ``time.monotonic()`` stamps before and after the wait on the last
+    level's event, the one wait the block pays anyway; on the CPU, where
+    each level ran eagerly, both stamps are taken at the loop's end."""
     live = S["live"]
     limit = 2 * budget
     if s.device.type == "cpu":
@@ -288,6 +294,8 @@ def replay_block(run_level: Callable[[Optional[np.ndarray]], None], s: torch.Ten
             if not s[live]:
                 break
             row = s.numpy().copy() if LOOKAHEAD == 1 else None
+        if drain is not None:
+            drain += [time.monotonic()] * 2
         return 0
     rows = torch.empty((limit, len(SLOTS)), dtype=DTYPE, pin_memory=True)
     host = rows.numpy()
@@ -304,7 +312,11 @@ def replay_block(run_level: Callable[[Optional[np.ndarray]], None], s: torch.Ten
             run_level(host[n - 1] if LOOKAHEAD == 1 else None)
         rows[n].copy_(s, non_blocking=True)
         events.append(stream.record_event())
+    if drain is not None:
+        drain.append(time.monotonic())
     stream.synchronize()
+    if drain is not None:
+        drain.append(time.monotonic())
     ran = len(events)
     live_levels = next((i + 1 for i in range(ran) if not host[i][live]), ran)
     return ran - live_levels

@@ -1073,14 +1073,15 @@ class PackedAbdOrdered(PackedAbd):
         return torch.stack([lin, chosen], 1)
 
 
-def main(argv=None) -> None:
+def main(argv=None, device=None) -> None:
     """Command line in the manner of linearizable-register.rs:319-430.
     ``check`` runs the GPU engine on the packed model at the test shape (2
-    servers) for 2 or 3 clients, on the unordered or the ordered network;
-    other shapes and networks fall back to the host DFS at the command
-    line's 3-server shape, as the reference does. ``check-host`` runs the
-    host DFS. ``explore`` waits for the Explorer (ROADMAP A10) and
-    ``spawn`` for the UDP runtime (ROADMAP A7)."""
+    servers) for 2 or 3 clients, on the unordered or the ordered network
+    (on the card unless ``device`` names the CPU); other shapes and
+    networks fall back to the host DFS at the command line's 3-server
+    shape, as the reference does. ``check-host`` runs the host DFS,
+    ``spawn`` starts three servers on UDP ports 3000-3002 of localhost, and
+    ``explore`` waits for the Explorer (ROADMAP A10)."""
     import sys
 
     from ..report import WriteReporter
@@ -1102,7 +1103,7 @@ def main(argv=None) -> None:
                 + (" (ordered network)." if netname == "ordered" else ".")
             )
             cls(client_count, 2).checker().spawn_xla(
-                frontier_capacity=1 << 10, table_capacity=1 << 13
+                device=device, frontier_capacity=1 << 10, table_capacity=1 << 13
             ).report(WriteReporter())
         else:
             network = Network.from_name(netname) if netname else None
@@ -1121,7 +1122,21 @@ def main(argv=None) -> None:
     elif cmd == "explore":
         raise NotImplementedError("explore waits for the Explorer (ROADMAP A10)")
     elif cmd == "spawn":
-        raise NotImplementedError("spawn waits for the UDP runtime (ROADMAP A7)")
+        from ..actor.spawn import json_codec, spawn
+
+        port = 3000
+        ids = [Id.from_addr("127.0.0.1", port + i) for i in range(3)]
+        serialize, deserialize = json_codec(
+            reg.Put, reg.Get, reg.PutOk, reg.GetOk, reg.Internal,
+            Query, AckQuery, Record, AckRecord,
+        )
+        print("  Three servers that implement a linearizable register.")
+        print("  You can interact using netcat:")
+        print(f"$ nc -u localhost {port}")
+        print(serialize(reg.Put(1, "X")).decode())
+        print(serialize(reg.Get(2)).decode())
+        spawn(serialize, deserialize,
+              [(ids[i], AbdActor([x for x in ids if x != ids[i]])) for i in range(3)])
     else:
         print("USAGE:")
         print("  linearizable-register check [CLIENT_COUNT] [NETWORK]  (GPU engine for 2-3 clients")
@@ -1129,6 +1144,7 @@ def main(argv=None) -> None:
         print("      host DFS at the command line's 3-server shape)")
         print("  linearizable-register check-host [CLIENT_COUNT] [NETWORK]  (sequential host DFS)")
         print("  linearizable-register check-xla   (alias of check)")
+        print("  linearizable-register spawn")
         print(
             f"NETWORK: {' | '.join(Network.names())}"
             "  ('unordered' = unordered_nonduplicating, the packed default)"

@@ -744,3 +744,64 @@ class PackedPaxos(reg.PackedClientsMixin, PackedModelAdapter):
             for p in range(self.C):
                 chosen = chosen | (L.get(words, "net", self._base_getok[k] + p) != 0)
         return torch.stack([lin, chosen], 1)
+
+
+def main(argv=None, device=None) -> None:
+    """Command line in the manner of paxos.rs:348-461. ``check`` runs the
+    GPU engine (``spawn_xla`` on ``PackedPaxos(n, 3)``, on the card unless
+    ``device`` names the CPU); a named NETWORK goes to the host DFS, as in
+    the reference, since the packed codec models the default network.
+    ``check-host`` runs the host DFS, ``spawn`` starts the three-server
+    cluster on UDP ports 3000-3002 of localhost, and ``explore`` waits for
+    the Explorer (ROADMAP A10)."""
+    import sys
+
+    from ..report import WriteReporter
+
+    args = list(sys.argv[1:] if argv is None else argv)
+    cmd = args.pop(0) if args else None
+    if cmd in ("check", "check-xla"):
+        client_count = int(args.pop(0)) if args else 2
+        network = Network.from_name(args.pop(0)) if args else None
+        if network is None:
+            print(f"Model checking Single Decree Paxos with {client_count} clients on the GPU.")
+            PackedPaxos(client_count, 3).checker().spawn_xla(
+                device=device, frontier_capacity=1 << 12, table_capacity=1 << 16
+            ).report(WriteReporter())
+        else:
+            print(f"Model checking Single Decree Paxos with {client_count} clients.")
+            paxos_model(client_count, 3, network).checker().spawn_dfs().report(WriteReporter())
+    elif cmd == "check-host":
+        client_count = int(args.pop(0)) if args else 2
+        network = Network.from_name(args.pop(0)) if args else None
+        print(f"Model checking Single Decree Paxos with {client_count} clients.")
+        paxos_model(client_count, 3, network).checker().spawn_dfs().report(WriteReporter())
+    elif cmd == "explore":
+        raise NotImplementedError("explore waits for the Explorer (ROADMAP A10)")
+    elif cmd == "spawn":
+        from ..actor.spawn import json_codec, spawn
+
+        port = 3000
+        ids = [Id.from_addr("127.0.0.1", port + i) for i in range(3)]
+        serialize, deserialize = json_codec(
+            reg.Put, reg.Get, reg.PutOk, reg.GetOk, reg.Internal,
+            Prepare, Prepared, Accept, Accepted, Decided,
+        )
+        print("  A Single Decree Paxos cluster of three servers.")
+        print("  You can interact using netcat:")
+        print(f"$ nc -u localhost {port}")
+        print(serialize(reg.Put(1, "X")).decode())
+        print(serialize(reg.Get(2)).decode())
+        spawn(serialize, deserialize,
+              [(ids[i], PaxosActor([x for x in ids if x != ids[i]])) for i in range(3)])
+    else:
+        print("USAGE:")
+        print("  paxos check [CLIENT_COUNT] [NETWORK]       (GPU engine; a NETWORK: host DFS)")
+        print("  paxos check-host [CLIENT_COUNT] [NETWORK]  (sequential host DFS)")
+        print("  paxos check-xla [CLIENT_COUNT]             (alias of check)")
+        print("  paxos spawn")
+        print(f"NETWORK: {' | '.join(Network.names())}")
+
+
+if __name__ == "__main__":
+    main()

@@ -464,3 +464,69 @@ class PackedSingleCopyRegisterOrdered(reg.PackedClientsMixin, PackedModelAdapter
             code, nonempty = self._lanes.head(words, self.C + k)
             chosen = chosen | (nonempty & (code >= 2))
         return torch.stack([lin, chosen], 1)
+
+
+def main(argv=None, device=None) -> None:
+    """Command line in the manner of single-copy-register.rs:139-233.
+    ``check`` runs the GPU engine (``spawn_xla`` on
+    ``PackedSingleCopyRegister(n, 1)``, or ``PackedSingleCopyRegisterOrdered(n)``
+    for the ordered network; on the card unless ``device`` names the CPU);
+    other networks go to the host DFS. ``check-host`` runs the host DFS,
+    ``spawn`` starts the server on UDP port 3000 of localhost, and
+    ``explore`` waits for the Explorer (ROADMAP A10)."""
+    import sys
+
+    from ..report import WriteReporter
+
+    args = list(sys.argv[1:] if argv is None else argv)
+    cmd = args.pop(0) if args else None
+    if cmd in ("check", "check-xla"):
+        client_count = int(args.pop(0)) if args and args[0].isdigit() else 2
+        netname = args.pop(0) if args else None
+        if netname in (None, "ordered"):
+            print(f"Model checking a single-copy register with {client_count} clients on the GPU.")
+            # The reference passes (client_count, 1) to the ordered model,
+            # whose constructor takes the client count alone (ROADMAP C).
+            model = (
+                PackedSingleCopyRegisterOrdered(client_count)
+                if netname == "ordered"
+                else PackedSingleCopyRegister(client_count, 1)
+            )
+            model.checker().spawn_xla(
+                device=device, frontier_capacity=1 << 11, table_capacity=1 << 14
+            ).report(WriteReporter())
+        else:
+            network = Network.from_name(netname)
+            print(f"Model checking a single-copy register with {client_count} clients.")
+            single_copy_register_model(client_count, 1, network).checker().spawn_dfs().report(
+                WriteReporter())
+    elif cmd == "check-host":
+        client_count = int(args.pop(0)) if args else 2
+        network = Network.from_name(args.pop(0)) if args else None
+        print(f"Model checking a single-copy register with {client_count} clients.")
+        single_copy_register_model(client_count, 1, network).checker().spawn_dfs().report(
+            WriteReporter())
+    elif cmd == "explore":
+        raise NotImplementedError("explore waits for the Explorer (ROADMAP A10)")
+    elif cmd == "spawn":
+        from ..actor.spawn import json_codec, spawn
+
+        port = 3000
+        serialize, deserialize = json_codec(reg.Put, reg.Get, reg.PutOk, reg.GetOk)
+        print("  A server that implements a single-copy register.")
+        print("  You can interact using netcat:")
+        print(f"$ nc -u localhost {port}")
+        print(serialize(reg.Put(1, "X")).decode())
+        print(serialize(reg.Get(2)).decode())
+        spawn(serialize, deserialize, [(Id.from_addr("127.0.0.1", port), SingleCopyActor())])
+    else:
+        print("USAGE:")
+        print("  single-copy-register check [CLIENT_COUNT] [NETWORK]       (GPU engine)")
+        print("  single-copy-register check-host [CLIENT_COUNT] [NETWORK]  (sequential host DFS)")
+        print("  single-copy-register check-xla [NETWORK]                  (alias of check)")
+        print("  single-copy-register spawn")
+        print(f"NETWORK: {' | '.join(Network.names())}")
+
+
+if __name__ == "__main__":
+    main()

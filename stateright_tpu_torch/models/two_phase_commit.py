@@ -332,12 +332,12 @@ class PackedTwoPhaseSys(TwoPhaseSys):
         return torch.stack([new_w0, new_w1], 1)
 
 
-def main(argv=None) -> None:
+def main(argv=None, device=None) -> None:
     """Command line in the manner of 2pc.rs:174-255. ``check`` runs the GPU
-    engine (``spawn_xla``, on the card); ``check-host`` runs the host DFS and
-    ``check-sym`` the host DFS with symmetry reduction (the object
-    ``representative()``). ``explore`` waits for the Explorer (ROADMAP
-    A10)."""
+    engine (``spawn_xla``, on the card unless ``device`` names the CPU);
+    ``check-host`` runs the host DFS and ``check-sym`` the host DFS with
+    symmetry reduction (the object ``representative()``). ``explore`` waits
+    for the Explorer (ROADMAP A10)."""
     import sys
 
     from ..report import WriteReporter
@@ -347,7 +347,7 @@ def main(argv=None) -> None:
     rm_count = int(args.pop(0)) if cmd and args else 2
     if cmd in ("check", "check-xla"):
         print(f"Checking two phase commit with {rm_count} resource managers on the GPU.")
-        PackedTwoPhaseSys(rm_count).checker().spawn_xla().report(WriteReporter())
+        PackedTwoPhaseSys(rm_count).checker().spawn_xla(device=device).report(WriteReporter())
     elif cmd == "check-host":
         print(f"Checking two phase commit with {rm_count} resource managers.")
         TwoPhaseSys(rm_count).checker().spawn_dfs().report(WriteReporter())

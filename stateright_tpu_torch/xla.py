@@ -117,6 +117,7 @@ which resume only under the same tag.
 from __future__ import annotations
 
 import functools
+import os
 import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -124,7 +125,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import graphs
+from . import graphs, obs
 from .backend import resolve_device
 from .carry import state_from_checkpoint
 from .checker.base import Checker
@@ -143,11 +144,49 @@ from .ops.compact import compact
 from .ops.words import DTYPE, from_u32, to_u32
 from .sym import SymmetryUnsupported, resolve_symmetry
 
-#: Counter names the engine keeps in ``metrics()``.
+#: Counter names the engine seeds in ``metrics()``: the reference's
+#: ``ENGINE_COUNTERS``, then the port's graph counters.
 ENGINE_COUNTERS = (
-    "table_grows", "delta_flushes", "frontier_grows", "cand_grows", "shrink_exits",
-    "graph_captures", "dead_replays", "checkpoints_written",
+    "table_grows", "frontier_grows", "cand_grows", "delta_flushes", "shrink_exits",
+    "ladder_jumps", "checkpoints_written", "graph_captures", "dead_replays",
 )
+
+#: ``compaction=`` values the reference takes that the port has not yet:
+#: queued in ROADMAP A.
+UNPORTED_COMPACTIONS = ("gather", "sort", "bsearch")
+
+
+def _resolve_compaction(compaction: str) -> str:
+    """``"auto"`` (or ``STPU_COMPACTION``) and ``"pallas"`` name the one
+    compaction the port has, the CUDA kernel ``csrc/compact.cu``, the
+    reference's ``"pallas"`` semantics; the reference's other lowerings
+    raise rather than run a quiet substitute."""
+    if compaction == "auto":
+        compaction = os.environ.get("STPU_COMPACTION") or "pallas"
+    if compaction in UNPORTED_COMPACTIONS:
+        raise ValueError(
+            f"compaction={compaction!r} is not ported yet (ROADMAP A); the port "
+            f"compacts with the CUDA kernel: pass 'auto' or 'pallas'"
+        )
+    if compaction != "pallas":
+        raise ValueError(
+            f"compaction must be 'auto', 'gather', 'sort', 'bsearch', or 'pallas': {compaction!r}"
+        )
+    return compaction
+
+
+def _resolve_phases(phases: Any) -> bool:
+    """``spawn_xla(phases=)`` or ``STPU_PHASES``: on/off spellings."""
+    if phases is None:
+        phases = os.environ.get("STPU_PHASES") or None
+    if isinstance(phases, str):
+        low = phases.strip().lower()
+        if low in ("1", "on", "true", "yes"):
+            return True
+        if low in ("0", "off", "false", "no", ""):
+            return False
+        raise ValueError(f"phases must be on/off (STPU_PHASES), got {phases!r}")
+    return bool(phases)
 
 #: Capacities a checker starts at when the caller passes none and the
 #: model holds no hint (:func:`capacity_hints`).
@@ -282,6 +321,14 @@ class XlaChecker(Checker):
         symmetry: Any = None,
         dedup: str = "auto",
         max_probes: int = 32,
+        compaction: str = "auto",
+        ladder: str = "auto",
+        trace: Any = None,
+        heartbeat: Any = None,
+        metrics_to: Any = None,
+        metrics_every: Any = None,
+        metrics_keep: Optional[int] = None,
+        phases: Any = None,
     ):
         model = builder._model
         missing = [attr for attr in PACKED_ATTRS if not hasattr(model, attr)]
@@ -318,6 +365,28 @@ class XlaChecker(Checker):
             raise ValueError(f"dedup must be 'auto', 'hash', 'sorted', or 'delta': {dedup!r}")
         self._dedup = dedup
         self._ds = graphs.STRUCTURES[dedup]
+        self._compaction = _resolve_compaction(compaction)
+        # The frontier ladder's policy after a frontier overflow: "jump"
+        # extrapolates the observed growth past several bucket rungs (fewer
+        # programs), "ramp" steps one rung (_grow_frontier).
+        if ladder == "auto":
+            ladder = os.environ.get("STPU_LADDER", "jump")
+        if ladder not in ("jump", "ramp"):
+            raise ValueError(f"ladder must be 'auto', 'jump', or 'ramp': {ladder!r}")
+        self._ladder = ladder
+        # Observability (obs/), all host-side and off by default: a span
+        # tracer (NULL_TRACER when off: no clock, no file), a heartbeat
+        # (None when off), a metrics time series sampled at block
+        # boundaries (None when off), and the dispatch-phase split, which
+        # needs a live tracer. No span enters a captured graph.
+        self._tracer = obs.resolve_tracer(trace)
+        self._heartbeat = obs.resolve_heartbeat(heartbeat)
+        self._recorder = obs.resolve_recorder(metrics_to, metrics_every, metrics_keep)
+        self._phases = _resolve_phases(phases) and self._tracer.enabled
+        #: One dict per dispatch (aligned with ``dispatch_log``) when the
+        #: phase split is on: bucket, flavor, compile, committed and the
+        #: four phases' seconds.
+        self.phase_log: List[Dict[str, Any]] = []
         self._max_probes = max_probes
         self._table_hint = f"{TABLE_HINT}_{dedup}"
         self._model = model
@@ -406,7 +475,7 @@ class XlaChecker(Checker):
         # write back to the hints, so a fresh checker starts where this one
         # ended.
         self._cand_caps: Dict[int, int] = dict(model.__dict__.get(CAND_HINTS, {}))
-        self._counters = {name: 0 for name in ENGINE_COUNTERS}
+        self._counters = obs.Counters(ENGINE_COUNTERS)
         #: {depth, frontier, generated, unique, bucket, cand_cap} per
         #: committed BFS level.
         self.level_log: List[Dict[str, int]] = []
@@ -425,6 +494,8 @@ class XlaChecker(Checker):
             self._restore(checkpoint, table_capacity)
             if self._autockpt is not None:
                 self._autockpt.arm(self._depth)
+            if self._recorder is not None:
+                self._recorder.arm(self._depth)
             return
 
         init_packed = np.asarray(model.packed_init(), dtype=np.uint32)
@@ -455,6 +526,8 @@ class XlaChecker(Checker):
         self._exhausted = n_init == 0
         if self._autockpt is not None:
             self._autockpt.arm(self._depth)
+        if self._recorder is not None:
+            self._recorder.arm(self._depth)
 
     # --- checkpoint and resume (checkpoint.py) ---------------------------------
 
@@ -463,8 +536,9 @@ class XlaChecker(Checker):
         current search state, in the reference's format; also the sink of
         the in-loop auto-checkpointer, so it counts ``checkpoints_written``
         and sets the ``last_checkpoint_level`` gauge for both."""
-        save_checkpoint(self, path, keep=keep)
-        self._counters["checkpoints_written"] += 1
+        with self._tracer.span("checkpoint", path=path, depth=self._depth, keep=keep):
+            save_checkpoint(self, path, keep=keep)
+        self._counters.inc("checkpoints_written")
         self._last_checkpoint_level = self._depth
 
     def _maybe_checkpoint(self) -> None:
@@ -473,6 +547,14 @@ class XlaChecker(Checker):
         ``STPU_CHECKPOINT_TO``) armed a cadence."""
         if self._autockpt is not None:
             self._autockpt.maybe(self)
+
+    def _maybe_record(self) -> None:
+        """The metrics time-series hook, at the same quiescent points as
+        :meth:`_maybe_checkpoint`, where ``metrics()`` reads host state
+        only; a no-op unless ``metrics_to`` (or ``STPU_METRICS_TO``) armed
+        a recorder."""
+        if self._recorder is not None:
+            self._recorder.maybe(self)
 
     def _restore(self, path: str, table_capacity: int) -> None:
         """Takes over a checkpoint's search state (written by either
@@ -765,7 +847,7 @@ class XlaChecker(Checker):
         return self._cand_caps[run_cap]
 
     def _grow_cand_cap(self, run_cap: int) -> None:
-        self._counters["cand_grows"] += 1
+        self._counters.inc("cand_grows")
         old = self._cand_cap_for(run_cap)
         new = min(old * 4, _next_pow2(run_cap * self._A))
         self._cand_caps[run_cap] = new
@@ -810,18 +892,23 @@ class XlaChecker(Checker):
         return getattr(self._table, "main_capacity", self._table.capacity)
 
     def _grow_table(self, doublings: int = 1) -> None:
-        """Double the visited set ``doublings`` times: a plain copy of the
-        sorted set, a rehash of the hash set, a rebuild of the delta set
-        with its delta folded into main (at least twice its rows). On the
-        fused path every program of the old capacity is made anew at the
-        new one, so that a later checker of the model, which starts at the
-        grown capacity (the hint), finds every shape it runs."""
+        """Double the visited set ``doublings`` times, one ``grow_table``
+        span each, as the reference does: a plain copy of the sorted set, a
+        rehash of the hash set, a rebuild of the delta set with its delta
+        folded into main (at least twice its rows). On the fused path every
+        program of the old capacity is made anew at the new one, once, so
+        that a later checker of the model, which starts at the grown
+        capacity (the hint), finds every shape it runs."""
         old = self._table_cap()
-        if self._dedup == "hash":
-            self._table = hashset.grow(self._table, old << doublings, self._max_probes)
-        else:
-            self._table = self._ds.grow(self._table, old << doublings)
-        self._counters["table_grows"] += doublings
+        for _ in range(doublings):
+            cap = self._table_cap() * 2
+            with self._tracer.span("grow_table", dedup=self._dedup,
+                                   capacity=self._table.capacity * 2):
+                if self._dedup == "hash":
+                    self._table = hashset.grow(self._table, cap, self._max_probes)
+                else:
+                    self._table = self._ds.grow(self._table, cap)
+            self._counters.inc("table_grows")
         self._model.__dict__[self._table_hint] = self._table_cap()
         if self._levels_per_dispatch > 1:
             self._reprogram(old)
@@ -846,17 +933,21 @@ class XlaChecker(Checker):
         if doublings:
             self._grow_table(doublings)
         if self._dedup == "delta" and int(self._table.n_delta) * 4 > self._table.delta_capacity * 3:
-            if not self._flush():
+            if not self._flush(proactive=True):
                 self._grow_table()
             return True
         return doublings > 0
 
-    def _flush(self) -> bool:
+    def _flush(self, proactive: bool) -> bool:
         """Fold the delta tier into main (``deltaset.maintain``); False,
-        with the table as it was, when main cannot hold both."""
-        flushed, overflow = deltaset.maintain(self._table)
-        self._counters["delta_flushes"] += 1
-        if bool(overflow):
+        with the table as it was, when main cannot hold both.
+        ``proactive``: the load rule's flush at a dispatch boundary, not an
+        overflow's."""
+        with self._tracer.span("delta_flush", proactive=proactive):
+            flushed, overflow = deltaset.maintain(self._table)
+            overflow = bool(overflow)
+        self._counters.inc("delta_flushes")
+        if overflow:
             return False
         self._table = flushed
         return True
@@ -865,7 +956,8 @@ class XlaChecker(Checker):
         """A level's insert overflowed the visited set: the delta set
         flushes a non-empty delta tier and retries the level, and only an
         empty-delta overflow, or a flush main cannot hold, grows."""
-        if self._dedup == "delta" and int(self._table.n_delta) > 0 and self._flush():
+        if (self._dedup == "delta" and int(self._table.n_delta) > 0
+                and self._flush(proactive=False)):
             return
         self._grow_table()
 
@@ -882,17 +974,21 @@ class XlaChecker(Checker):
 
     def _grow_frontier(self, run_cap: int) -> int:
         """Next bucket after a frontier overflow: the next power-of-four
-        rung, or a jump extrapolated from the observed growth (``run_cap *
-        g^2`` forecasts the peak), or past the top bucket a doubled
-        frontier-capacity ceiling."""
-        self._counters["frontier_grows"] += 1
+        rung ("ramp"), or under "jump" a jump extrapolated from the
+        observed growth (``run_cap * g^2`` forecasts the peak; counted in
+        ``ladder_jumps`` when it passes the next rung), or past the top
+        bucket a doubled frontier-capacity ceiling."""
+        self._counters.inc("frontier_grows")
         if run_cap < self._frontier_capacity:
             buckets = ladder_buckets(self._frontier_capacity)
-            nxt = next(b for b in buckets if b > run_cap)
-            g = self._recent_growth()
+            ramp = next(b for b in buckets if b > run_cap)
+            nxt = ramp
+            g = self._recent_growth() if self._ladder == "jump" else None
             if g is not None and g >= 2.0:
                 est_peak = run_cap * min(g, self.LADDER_GROWTH_CLAMP) ** 2
                 nxt = max(nxt, next((b for b in buckets if b >= 4 * est_peak), buckets[-1]))
+            if nxt > ramp:
+                self._counters.inc("ladder_jumps")
             return nxt
         self._frontier_capacity *= 2
         self._model.__dict__[FRONTIER_HINT] = self._frontier_capacity
@@ -954,23 +1050,49 @@ class XlaChecker(Checker):
         return self._run_block_single()
 
     def _run_block_single(self) -> None:
-        """One BFS level, retried after any buffer overflow."""
+        """One BFS level, retried after any buffer overflow. Its dispatch
+        span has flavor ``single`` and ``compile`` false: the level runs
+        eagerly, with no program to make. Under the phase split,
+        ``enqueue`` is the superstep's launches and ``device_compute`` a
+        device synchronize, the one wait this path adds."""
         if not self._entry_checks():
             return
         if self._visitor is not None:
             self._visit_frontier()
         run_cap = self._run_cap_for(self._frontier_count)
+        retry = False  # re-running the level after an overflow recovery
         while True:
-            f_in, e_in = self._bucket_inputs(run_cap)
             cand_cap = self._cand_cap_for(run_cap)
-            f_count = torch.full((), self._frontier_count, dtype=DTYPE, device=self._device)
-            nf, ne, table, dfound, dfp, out, hv, _ = self._superstep(
-                f_in, e_in, f_count, self._table, self._disc_found, self._disc_fp, cand_cap
-            )
-            vals = torch.cat([out, hv[2]]).tolist()
-            d_states, d_unique, ncount, t_ovf, f_ovf, c_ovf, cc_ovf = vals[:7]
-            committed = not (t_ovf or f_ovf or c_ovf or cc_ovf)
+            if self._heartbeat is not None:
+                self._heartbeat.beat("dispatch", compile=False, bucket=run_cap,
+                                     depth=self._depth, states=self._state_count)
+            with self._tracer.span(
+                "dispatch", flavor="single", bucket=run_cap, cand=cand_cap, compile=False,
+                retry=retry, dedup=self._dedup, compaction=self._compaction,
+            ) as span:
+                pt0 = time.monotonic() if self._phases else 0.0
+                f_in, e_in = self._bucket_inputs(run_cap)
+                f_count = torch.full((), self._frontier_count, dtype=DTYPE, device=self._device)
+                pt1 = time.monotonic() if self._phases else 0.0
+                nf, ne, table, dfound, dfp, out, hv, _ = self._superstep(
+                    f_in, e_in, f_count, self._table, self._disc_found, self._disc_fp, cand_cap
+                )
+                if self._phases:
+                    pt2 = time.monotonic()
+                    if self._device.type == "cuda":
+                        torch.cuda.synchronize(self._device)
+                    pt3 = time.monotonic()
+                vals = torch.cat([out, hv[2]]).tolist()
+                d_states, d_unique, ncount, t_ovf, f_ovf, c_ovf, cc_ovf = vals[:7]
+                committed = not (t_ovf or f_ovf or c_ovf or cc_ovf)
+                span.set(committed=int(committed))
+                pt4 = time.monotonic() if self._phases else 0.0
             self.dispatch_log.append((run_cap, int(committed)))
+            if self._phases:
+                self._log_phases(span, flavor="single", bucket=run_cap, fresh=False,
+                                 committed=int(committed), stamps=(pt0, pt1, pt2, pt3, pt4))
+            if self._heartbeat is not None:
+                self._heartbeat.commit(depth=self._depth, states=self._state_count)
             if c_ovf:
                 self._raise_codec_overflow()
             if t_ovf:
@@ -981,6 +1103,7 @@ class XlaChecker(Checker):
                 self._grow_cand_cap(run_cap)
             else:
                 break
+            retry = True
         self.level_log.append({
             "depth": self._depth,
             "frontier": self._frontier_count,
@@ -1000,6 +1123,7 @@ class XlaChecker(Checker):
         self._confirm_hv_candidates(hv[0], hv[1], vals[7:])
         self._pin_found_names()
         self._maybe_checkpoint()
+        self._maybe_record()
         if (
             self._target_state_count is not None
             and self._state_count >= self._target_state_count
@@ -1035,7 +1159,7 @@ class XlaChecker(Checker):
         rows, cand_cap = rung or (run_cap, self._cand_cap_for(run_cap))
         key = (run_cap, rows, cand_cap) + self._tail()
         prog = self._programs.programs.get(key)
-        if prog is None or (self._use_graphs and prog.graph is None):
+        if not self._ready(prog):
             carry = self._programs.carry(self._W, self._P, key[3], key[4],
                                          len(self._hv_idx), self._hv_cap, self._dedup)
             carry.frontier(run_cap)  # allocated before any capture
@@ -1043,9 +1167,20 @@ class XlaChecker(Checker):
             t0 = time.perf_counter()
             prog = self._programs.make(key, carry, body, graph=self._use_graphs)
             if self._use_graphs:
-                self._counters["graph_captures"] += 1
+                self._counters.inc("graph_captures")
                 self._capture_s += time.perf_counter() - t0
         return prog
+
+    def _ready(self, prog: Optional[graphs.Program]) -> bool:
+        """Whether ``prog`` exists and, on a card, holds its graph."""
+        return prog is not None and not (self._use_graphs and prog.graph is None)
+
+    def _makes_programs(self, run_cap: int, rungs: List[Tuple[int, int]]) -> bool:
+        """Whether the block at ``run_cap`` will make a program (on a card:
+        capture a graph), the dispatch span's and heartbeat's ``compile``."""
+        tail = self._tail()
+        return not all(self._ready(self._programs.programs.get((run_cap, *rung) + tail))
+                       for rung in rungs)
 
     def _programs_for(self, run_cap: int) -> List[graphs.Program]:
         """The programs of every rung of this bucket (``_cand_rungs``), made
@@ -1119,13 +1254,26 @@ class XlaChecker(Checker):
         rung ``_choose_rung`` picks from the level before. An overflow exit commits every level
         before the overflowing one, grows, and re-enters with the budget
         left; a shrink-exit re-enters at a smaller bucket that has a
-        program."""
+        program.
+
+        The block is one ``dispatch`` span, from the programs made and the
+        carry loaded to the readback of the block scalars, with the
+        reference's attrs (flavor ``fused``; ``compile`` when the block
+        makes a program, on a card a graph capture). Under the phase split
+        (:data:`PHASE_NAMES`): ``host_prep`` runs to the first replay,
+        ``enqueue`` is the replay loop, ``device_compute`` the wait on the
+        last level's event, ``readback`` the scalars' copy to the host.
+        The reference's one fused call returns at enqueue, so its
+        ``enqueue`` holds no device time; the port's replay loop waits on
+        each level's event before it enqueues the next, so its ``enqueue``
+        holds the device time of every level but the last."""
         if not self._entry_checks():
             return
         budget_left = self._levels_per_dispatch
         if self._target_max_depth is not None:
             budget_left = min(budget_left, self._target_max_depth - self._depth)
         run_cap = self._run_cap_for(self._frontier_count)
+        retry = False  # re-entering after an overflow recovery
         while budget_left > 0:
             remaining = NO_TARGET
             if self._target_state_count is not None:
@@ -1139,27 +1287,51 @@ class XlaChecker(Checker):
                 if smaller:
                     shrink_below = max(smaller) // 4
             rungs = self._cand_rungs(run_cap)
-            progs = self._programs_for(run_cap)
-            carry = progs[-1].carry
-            loaded = self._load(carry, run_cap, budget_left, remaining, shrink_below)
-            eager = not self._use_graphs
+            # Read only by the span, the heartbeat and the phase rows.
+            observed = self._tracer.enabled or self._heartbeat is not None
+            fresh = observed and self._makes_programs(run_cap, rungs)
+            if self._heartbeat is not None:
+                self._heartbeat.beat("dispatch", compile=fresh, bucket=run_cap,
+                                     depth=self._depth, states=self._state_count)
+            with self._tracer.span(
+                "dispatch", flavor="fused", bucket=run_cap,
+                # Built only for a live tracer: the off path allocates nothing.
+                cand=[list(r) for r in rungs] if self._tracer.enabled else None,
+                compile=fresh, retry=retry, dedup=self._dedup, compaction=self._compaction,
+                shrink_below=shrink_below,
+            ) as span:
+                pt0 = time.monotonic() if self._phases else 0.0
+                progs = self._programs_for(run_cap)
+                carry = progs[-1].carry
+                loaded = self._load(carry, run_cap, budget_left, remaining, shrink_below)
+                eager = not self._use_graphs
 
-            def run_level(row):
-                k = self._choose_rung(rungs, row)
-                rows, cand_cap = rungs[k]
-                body = functools.partial(self._gated_level, carry, run_cap, cand_cap, rows)
-                progs[k].run(body, eager)
+                def run_level(row):
+                    k = self._choose_rung(rungs, row)
+                    rows, cand_cap = rungs[k]
+                    body = functools.partial(self._gated_level, carry, run_cap, cand_cap, rows)
+                    progs[k].run(body, eager)
 
-            self._counters["dead_replays"] += graphs.replay_block(
-                run_level, carry.s, loaded, budget_left
-            )
-            vals = torch.cat([carry.s, carry.lvl.flatten(), carry.hv_c]).tolist()
-            s = dict(zip(graphs.SLOTS, vals))
+                drain = [] if self._phases else None
+                pt1 = time.monotonic() if self._phases else 0.0
+                self._counters.inc("dead_replays", graphs.replay_block(
+                    run_level, carry.s, loaded, budget_left, drain))
+                vals = torch.cat([carry.s, carry.lvl.flatten(), carry.hv_c]).tolist()
+                s = dict(zip(graphs.SLOTS, vals))
+                committed = s["committed"]
+                span.set(committed=committed)
+                pt4 = time.monotonic() if self._phases else 0.0
             lvl = np.asarray(vals[len(graphs.SLOTS):len(vals) - len(self._hv_idx)]).reshape(
                 graphs.LVL_ROWS, -1)
             hv_counts = vals[len(vals) - len(self._hv_idx):]
-            committed = s["committed"]
             self.dispatch_log.append((run_cap, committed))
+            if self._phases:
+                self._log_phases(span, flavor="fused", bucket=run_cap, fresh=fresh,
+                                 committed=committed, stamps=(pt0, pt1, *drain, pt4))
+            if self._heartbeat is not None:
+                self._heartbeat.commit(depth=self._depth + committed,
+                                       states=self._state_count + s["tot_states"])
+            retry = False
             self.cand_retries += s["retries"]
             self._keep(carry, run_cap, s["f_count"])
             hv_w, hv_f = carry.hv_w, carry.hv_f
@@ -1195,6 +1367,7 @@ class XlaChecker(Checker):
             # A quiescent point: the committed prefix is in host-visible
             # state (an overflowing level was not committed).
             self._maybe_checkpoint()
+            self._maybe_record()
             if (
                 self._target_state_count is not None
                 and self._state_count >= self._target_state_count
@@ -1208,12 +1381,15 @@ class XlaChecker(Checker):
             if s["t_ovf"]:
                 if not made_room:
                     self._resolve_table_overflow()
+                retry = True
                 continue
             if s["f_ovf"]:
                 run_cap = self._grow_frontier(run_cap)
+                retry = True
                 continue
             if s["cc_ovf"]:
                 self._grow_cand_cap(run_cap)
+                retry = True
                 continue
             if self._frontier_count == 0 or committed == 0:
                 break
@@ -1228,7 +1404,26 @@ class XlaChecker(Checker):
                 ]
                 if snug:
                     run_cap = min(snug)
-                    self._counters["shrink_exits"] += 1
+                    self._counters.inc("shrink_exits")
+
+    #: Phase names in stamp order: the contiguous split of one dispatch
+    #: (the reference's names; what each covers in the port is in
+    #: :meth:`_run_block_fused`'s docstring).
+    PHASE_NAMES = ("host_prep", "enqueue", "device_compute", "readback")
+
+    def _log_phases(self, span, *, flavor: str, bucket: int, fresh: bool, committed: int,
+                    stamps: Tuple[float, ...]) -> None:
+        """One dispatch's phase split: a ``phase_log`` row and four
+        ``phase:*`` sub-spans parented to the dispatch span just closed.
+        The stamps are contiguous, so the phases partition its interior."""
+        row: Dict[str, Any] = {"bucket": bucket, "flavor": flavor, "compile": fresh,
+                               "committed": committed}
+        for i, name in enumerate(self.PHASE_NAMES):
+            dur = stamps[i + 1] - stamps[i]
+            row[name] = dur
+            self._tracer.emit(f"phase:{name}", t0=stamps[i], dur=dur,
+                              attrs={"bucket": bucket}, parent_id=span.span_id)
+        self.phase_log.append(row)
 
     def _confirm_hv_candidates(self, hv_words, hv_fps, hv_counts) -> None:
         """The exact host re-check of the candidates the device flagged for
@@ -1237,35 +1432,45 @@ class XlaChecker(Checker):
         first candidate in frontier order whose exact condition confirms
         the violation (or the example) becomes the discovery. Raises when
         more rows were flagged than ``host_verified_cap`` kept and none of
-        the kept ones confirmed."""
+        the kept ones confirmed. One ``host_verify`` span a call, for a
+        model with host-verified properties."""
+        if not self._hv_idx:
+            return
+        checked0, confirmed0 = self.hv_stats["host_checked"], self.hv_stats["confirmed"]
         t0 = time.monotonic()
         words = fps = None
-        for j, i in enumerate(self._hv_idx):
-            prop = self._properties[i]
-            n = int(hv_counts[j])
-            if prop.name in self._found_names or n == 0:
-                continue
-            self.hv_stats["flagged"] += n
-            if words is None:
-                words, fps = to_u32(hv_words), to_u32(hv_fps)
-            confirmed = False
-            for r in range(min(n, self._hv_cap)):
-                holds = bool(prop.condition(self._model, self._model.unpack(words[j, r])))
-                self.hv_stats["host_checked"] += 1
-                if holds != (prop.expectation == Expectation.ALWAYS):
-                    self._found_names[prop.name] = (int(fps[j, r, 0]) << 32) | int(fps[j, r, 1])
-                    self.hv_stats["confirmed"] += 1
-                    confirmed = True
-                    break
-                self.hv_stats["cleared"] += 1
-            if not confirmed and n > self._hv_cap:
-                raise RuntimeError(
-                    f"{n} candidate states for host-verified property {prop.name!r} in one "
-                    f"super-step, none of the first {self._hv_cap} confirmed — tighten the "
-                    "conservative device predicate or raise the candidate cap "
-                    "(spawn_xla(host_verified_cap=...))."
-                )
-        self.hv_stats["host_sec"] += time.monotonic() - t0
+        with self._tracer.span("host_verify") as span:
+            try:
+                for j, i in enumerate(self._hv_idx):
+                    prop = self._properties[i]
+                    n = int(hv_counts[j])
+                    if prop.name in self._found_names or n == 0:
+                        continue
+                    self.hv_stats["flagged"] += n
+                    if words is None:
+                        words, fps = to_u32(hv_words), to_u32(hv_fps)
+                    confirmed = False
+                    for r in range(min(n, self._hv_cap)):
+                        holds = bool(prop.condition(self._model, self._model.unpack(words[j, r])))
+                        self.hv_stats["host_checked"] += 1
+                        if holds != (prop.expectation == Expectation.ALWAYS):
+                            fp64 = (int(fps[j, r, 0]) << 32) | int(fps[j, r, 1])
+                            self._found_names[prop.name] = fp64
+                            self.hv_stats["confirmed"] += 1
+                            confirmed = True
+                            break
+                        self.hv_stats["cleared"] += 1
+                    if not confirmed and n > self._hv_cap:
+                        raise RuntimeError(
+                            f"{n} candidate states for host-verified property {prop.name!r} "
+                            f"in one super-step, none of the first {self._hv_cap} confirmed — "
+                            "tighten the conservative device predicate or raise the candidate "
+                            "cap (spawn_xla(host_verified_cap=...))."
+                        )
+            finally:
+                span.set(checked=self.hv_stats["host_checked"] - checked0,
+                         confirmed=self.hv_stats["confirmed"] - confirmed0)
+                self.hv_stats["host_sec"] += time.monotonic() - t0
 
     def _raise_codec_overflow(self) -> None:
         raise RuntimeError(
@@ -1306,10 +1511,14 @@ class XlaChecker(Checker):
         return self._frontier_count == 0 and self._state_count > 0
 
     def metrics(self) -> Dict[str, Any]:
+        """The reference's snapshot (every key of its ``metrics()``; host
+        reads only, safe between blocks) plus the port's ``device``,
+        ``graph_capture_s``, ``graph_captures`` and ``dead_replays``."""
         cap = self._table.capacity
         return {
             **super().metrics(),
             "engine": "xla",
+            "backend": self._backend,
             "device": str(self._device),
             "depth": self._depth,
             "frontier_count": self._frontier_count,
@@ -1322,14 +1531,17 @@ class XlaChecker(Checker):
             "shrink_exit": self._shrink_exit,
             "symmetry": self._sym_tag,
             "dedup": self._dedup,
+            "compaction": self._compaction,
+            "ladder": self._ladder,
             "cand_ladder_k": self._cand_ladder_k,
             "cand_retries": self.cand_retries,
             "hv": dict(self.hv_stats),
             "graph_capture_s": self._capture_s,
             "checkpoint_to": self._autockpt.path if self._autockpt else None,
+            "metrics_to": self._recorder.path if self._recorder else None,
             "resumed_from": self._resumed_from,
             "last_checkpoint_level": self._last_checkpoint_level,
-            **self._counters,
+            **self._counters.snapshot(),
         }
 
     def _visit_frontier(self) -> None:
