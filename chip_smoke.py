@@ -129,9 +129,25 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    heartbeat and series held against ``dispatch_log``, the Chrome export
    and an OpenMetrics render of the final snapshot parsed back; once more
    under ``dedup="hash"``;
-13. prints the ``{"kernels": [...]}`` line (launches summed over every
+13. drives the Explorer (``explorer``): ``make_app(PackedTwoPhaseSys(8)
+   .checker())``, the GPU backend, served on ``127.0.0.1`` over a
+   ``ThreadingHTTPServer`` with ``serve``'s threads (``explorer.start``):
+   the init states and a 12-click path through ``/.states``, each click's
+   views and counts equal to the port's host Explorer on ``TwoPhaseSys(8)``
+   (fingerprints too), each click's latency and (traced, under the sorted set) its eager
+   levels' phase split; then ``POST /.runtocompletion`` polled to done:
+   18,507,778 / 1,745,408, every discovery re-executed, a clean audit,
+   ``/.metrics`` parsed back equal to ``metrics()``; under the sorted and
+   the hash set; then the kernels against their plain versions at a
+   click's shapes (``click_kernels``); and the multiplexed engine
+   (``mux``): K = 1, 3 and 8 lanes of 2pc rm=4 under the sorted and the
+   hash set, each lane equal to its solo run on the card (K = 8 in at most
+   a third of 8 solo runs' dispatches), stragglers, K = 3 lanes of Paxos
+   2c/3s and K = 2 lanes of rm=8 (exact, peak memory), and warm walls of a
+   K = 8 run against 8 warm solo runs, in turns;
+14. prints the ``{"kernels": [...]}`` line (launches summed over every
    main-path run: rm=8, Paxos 3c/3s, single-copy-register, the
-   host-verified runs and the paths of items 9 to 12, each also by path)
+   host-verified runs and the paths of items 9 to 13, each also by path)
    and, last, the device line.
 
 Every line but the nvidia-smi one is a JSON object. Any failed check
@@ -150,6 +166,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -158,6 +175,8 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 from stateright_tpu_torch import PathRecorder, graphs, obs
 from stateright_tpu_torch.audit import audit_table
+from stateright_tpu_torch.checker import explorer
+from stateright_tpu_torch.checker.explorer import make_app
 from stateright_tpu_torch.checkpoint import (
     PAYLOAD_KEYS,
     checkpoint_arrays,
@@ -178,14 +197,15 @@ from stateright_tpu_torch.models.single_copy_register import (
     PackedSingleCopyRegisterOrdered,
 )
 from stateright_tpu_torch.core import Property
-from stateright_tpu_torch.models.two_phase_commit import PackedTwoPhaseSys
+from stateright_tpu_torch.models.two_phase_commit import PackedTwoPhaseSys, TwoPhaseSys
 from stateright_tpu_torch.obs import heartbeat, promexport
 from stateright_tpu_torch.ops import _cuda, deltaset, hashset, sortedset
 from stateright_tpu_torch.ops.compact import compact, compact_plain
 from stateright_tpu_torch.ops.merge import merge_insert, merge_insert_plain
-from stateright_tpu_torch.ops.words import DTYPE, from_u32
+from stateright_tpu_torch.ops.words import DTYPE, PAD_KEY, fold_key, from_u32
 from stateright_tpu_torch.sym import canonicalize_host, compile_canon
 from stateright_tpu_torch.xla import XlaChecker
+from stateright_tpu_torch.xla_mux import MuxChecker
 
 #: H100 SXM device-memory rate, bytes per second (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -1092,6 +1112,32 @@ def check_merge(name: str, table, batch, reps: int = 1) -> dict:
             "max_abs_err": err}
 
 
+def merge_bytes(table, batch, n_keep: int) -> int:
+    """Bytes a merge-insert must move under its contract (rows of
+    ``merged`` from ``n_keep`` on are unspecified): the keys of the table's
+    occupied rows and of the batch's valid rows read once, a binary search
+    of each to find where its pads start (a 16-byte key a step), the kept
+    rows' values read and their four words written once, a keep flag for
+    every batch row and n_keep written. Pad rows are not read."""
+    c, m = table.shape[1], batch.shape[1]
+    n_table, m_valid = (int((fold_key(t[0], t[1]) != PAD_KEY).sum()) for t in (table, batch))
+    search = (c.bit_length() + m.bit_length()) * 16
+    return (2 * n_table + 2 * m_valid) * 8 + search + 6 * min(n_keep, c) * 8 + m + 8
+
+
+def merge_timing(table, batch, n_keep: int) -> dict:
+    """:func:`kernel_timing` of ``merge_insert`` on ``(table, batch)``,
+    bound by :func:`merge_bytes`; beside it ``capacity_bound_ms``, the
+    bound over the key of every table and batch row, pads included."""
+    c, m = table.shape[1], batch.shape[1]
+    timing = kernel_timing(
+        lambda: merge_insert(table, batch), lambda: merge_insert_plain(table, batch), None,
+        merge_bytes(table, batch, n_keep), MERGE_SYMBOL,
+    )
+    timing["capacity_bound_ms"] = bound_ms((2 * c + 2 * m) * 8 + 6 * min(n_keep, c) * 8 + m + 8)
+    return timing
+
+
 def merge_phase(rng, c_main: int, m_main: int) -> dict:
     """B2 against its plain version at the rm=8 run's largest shapes (C =
     its table capacity with ~1.3 M real rows, m = its widest candidate
@@ -1114,13 +1160,7 @@ def merge_phase(rng, c_main: int, m_main: int) -> dict:
     out = {name: check_merge(name, *case, reps=reps) for name, (case, reps) in cases.items()}
     table, batch = cases["rm8_table"][0]
     n = out["rm8_table"]["n_keep"]
-    c, m = table.shape[1], batch.shape[1]
-    # Keys of every row read once, values of the kept rows read once,
-    # merged rows, keep flags and n_keep written once.
-    timing = kernel_timing(
-        lambda: merge_insert(table, batch), lambda: merge_insert_plain(table, batch), None,
-        (2 * c + 2 * m) * 8 + 6 * min(n, c) * 8 + m + 8, MERGE_SYMBOL,
-    )
+    timing = merge_timing(table, batch, n)
     emit({"phase": "merge_insert", "cases": out, **timing})
     return {"max_abs_err": max(v["max_abs_err"] for v in out.values()), **timing}
 
@@ -1168,17 +1208,14 @@ def model_kernel_phase(shapes, rng, tag: str = "paxos3") -> dict:
     table, batch = _merge_case(rng, c_tab, shapes["unique"], m_cand)
     out["merge"] = check_merge(f"{tag}_table", table, batch, reps=20)
     nk = out["merge"]["n_keep"]
-    merge_timing = kernel_timing(
-        lambda: merge_insert(table, batch), lambda: merge_insert_plain(table, batch), None,
-        (2 * c_tab + 2 * m_cand) * 8 + 6 * min(nk, c_tab) * 8 + m_cand + 8, MERGE_SYMBOL,
-    )
+    table_merge = merge_timing(table, batch, nk)
     del table, batch
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": f"{tag}_kernels", "cases": out,
           "grid": {"F": f, "A": A, "P": W + 3, "cap": cap, **grid_timing},
           "frontier": {"M": wide["cand_cap"], "P": W + 1, "cap": wide["bucket"], **frontier_timing},
-          "merge_insert": {"C": c_tab, "m": m_cand, **merge_timing}})
+          "merge_insert": {"C": c_tab, "m": m_cand, **table_merge}})
     drop = ("device_ops",)
     return {
         "compact": {
@@ -1189,7 +1226,7 @@ def model_kernel_phase(shapes, rng, tag: str = "paxos3") -> dict:
                          **{k: v for k, v in frontier_timing.items() if k not in drop}},
         },
         "merge_insert": {"max_abs_err": out["merge"]["max_abs_err"], "C": c_tab, "m": m_cand,
-                         **{k: v for k, v in merge_timing.items() if k not in drop}},
+                         **{k: v for k, v in table_merge.items() if k not in drop}},
     }
 
 
@@ -1413,9 +1450,7 @@ def rung_kernel_phase(c, shapes, hv_shapes, rng) -> dict:
     table, batch = _merge_case(rng, 1 << 22, 1_300_000, 320)
     check = check_merge("m_320", table, batch, reps=20)
     nk = check["n_keep"]
-    merge["m_320"] = {**check, **kernel_timing(
-        lambda: merge_insert(table, batch), lambda: merge_insert_plain(table, batch), None,
-        (2 * (1 << 22) + 2 * 320) * 8 + 6 * nk * 8 + 320 + 8, MERGE_SYMBOL)}
+    merge["m_320"] = {**check, **merge_timing(table, batch, nk)}
     del table, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2734,10 +2769,7 @@ def flush_merge_phase(rng, shapes) -> dict:
     n_main = min(n_main, c - dc)
     table, batch = _planes(rng, np.sort(keys[:n_main]), c), _planes(rng, np.sort(keys[n_main:]), dc)
     check = check_merge("delta_flush", table, batch, reps=5)
-    timing = kernel_timing(
-        lambda: merge_insert(table, batch), lambda: merge_insert_plain(table, batch), None,
-        (2 * c + 2 * dc) * 8 + 6 * min(check["n_keep"], c) * 8 + dc + 8, MERGE_SYMBOL,
-    )
+    timing = merge_timing(table, batch, check["n_keep"])
     timing.pop("device_ops")
     del table, batch
     gc.collect()
@@ -2870,6 +2902,390 @@ def dedup_phase(main_model, main_warm, rng):
     return launches, hash_lines, merge_lines
 
 
+# --- the Explorer and the multiplexed engine ------------------------------------
+
+#: Clicks of the ``explorer`` phase's path below 2pc rm=8's init state.
+EXPLORER_CLICKS = 12
+#: Seconds a request of the ``explorer`` phase may take (a click, or a poll
+#: while the drive thread runs a block that captures graphs).
+HTTP_TIMEOUT_S = 300
+
+
+def http_request(port: int, path: str, method: str = "GET"):
+    """``(body bytes, seconds)`` of one request to ``127.0.0.1:port``."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method)
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as resp:
+        body = resp.read()
+    return body, time.perf_counter() - t0
+
+
+def http_json(port: int, path: str, method: str = "GET"):
+    body, secs = http_request(port, path, method)
+    return json.loads(body), secs
+
+
+def as_json(obj):
+    """``obj`` as a JSON round trip gives it back (tuples become lists)."""
+    return json.loads(json.dumps(obj))
+
+
+def click_splits(trace: str, epoch: float, windows) -> list:
+    """For each click's request window (monotonic ``(start, end)``), the
+    dispatch spans the checker traced inside it (its eager levels,
+    overflow retries included): their count, milliseconds and the four
+    phases' milliseconds."""
+    with open(trace) as fh:
+        spans = [json.loads(line) for line in fh]
+    phases = collections.defaultdict(dict)
+    for sp in spans:
+        if sp["name"].startswith("phase:"):
+            phases[sp.get("parent_id")][sp["name"][len("phase:"):]] = sp["dur"] * 1e3
+    out = []
+    for start, end in windows:
+        inside = [sp for sp in spans if sp["name"] == "dispatch"
+                  and start - epoch <= sp["ts"] and sp["ts"] + sp["dur"] <= end - epoch]
+        split = collections.Counter()
+        for sp in inside:
+            split.update(phases.get(sp["span_id"], {}))
+        out.append({"levels": len(inside), "level_ms": sum(sp["dur"] for sp in inside) * 1e3,
+                    "phases_ms": dict(split)})
+    return out
+
+
+def explorer_run(dedup: str, trace: str = None) -> dict:
+    """2pc rm=8 through a live Explorer on the card (``make_app(
+    PackedTwoPhaseSys(8).checker(), dedup=dedup)``, the GPU backend): the
+    init states and a path of ``EXPLORER_CLICKS`` clicks through
+    ``/.states``, each click's views and the counts equal to the port's host
+    Explorer on ``TwoPhaseSys(8)`` (fingerprints and encoded discovery paths
+    too); then ``POST /.runtocompletion``, polled to done: the pinned
+    counts, every discovery re-executed, a clean audit, ``/.metrics``
+    parsed back equal to ``metrics()``. Launch counters set to 0 before the
+    app is built, read after the clicks and at the end. With ``trace`` (a
+    span file), the checker traces its dispatches with the phase split, and
+    each click's levels are read back from it (:func:`click_splits`)."""
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    traced = {"trace": trace, "phases": True} if trace else {}
+    app, checker = make_app(PackedTwoPhaseSys(8).checker(), dedup=dedup, **traced)
+    host_app, host = make_app(TwoPhaseSys(8).checker())
+    build_s = time.perf_counter() - t0
+    # Served as ``serve`` serves it (its server loop, drive and re-arm
+    # threads). Requests come from this thread, which does no CUDA work
+    # while the server runs: every checker call is the app's, under its
+    # lock, in the handler and drive threads.
+    server, stop, threads = explorer.start(app, ("127.0.0.1", 0))
+    port = server.server_address[1]
+    clicks, windows = [], []
+    try:
+        body, init_s = http_json(port, "/.states/")
+        require(body == as_json(host_app.states("/")[1]), f"explorer {dedup}: init views")
+        path = ""
+        for i in range(EXPLORER_CLICKS):
+            with_state = [v for v in body if "fingerprint" in v]
+            path += "/" + with_state[(3 * i + 1) % len(with_state)]["fingerprint"]
+            start = time.monotonic()
+            body, secs = http_json(port, "/.states" + path)
+            windows.append((start, time.monotonic()))
+            code, want = host_app.states(path)
+            require(code == 200 and body == as_json(want), f"explorer {dedup}: click {i} views")
+            status, _ = http_json(port, "/.status")
+            want_status = host_app.status()
+            for key in ("state_count", "unique_state_count", "max_depth", "done"):
+                require(status[key] == want_status[key], f"explorer {dedup}: click {i} {key}")
+            require(as_json(status["properties"]) == as_json(want_status["properties"]),
+                    f"explorer {dedup}: click {i} properties")
+            clicks.append({"ms": secs * 1e3, "views": len(body), "state_count": status["state_count"],
+                           "unique": status["unique_state_count"],
+                           "pending_pool": status["metrics"]["pending_pool"]})
+        click_launches = launches_now(dedup)
+        click_levels = [dict(r) for r in checker.level_log]
+        click_table = status["metrics"]["table_capacity"]
+        t1 = time.perf_counter()
+        http_request(port, "/.runtocompletion", "POST")
+        while True:
+            status, _ = http_json(port, "/.status")
+            if status["done"]:
+                break
+            require(time.perf_counter() - t1 < HTTP_TIMEOUT_S, f"explorer {dedup}: run to completion")
+            require(threads[1].is_alive(), f"explorer {dedup}: the drive thread died")
+            time.sleep(0.02)
+        rtc_wall = time.perf_counter() - t1
+        text, _ = http_request(port, "/.metrics")
+    finally:
+        stop()
+    torch.cuda.synchronize()
+    launches = launches_now(dedup)
+    counts = (checker.state_count(), checker.unique_state_count())
+    require(counts == EXPECTED_2PC[8], f"explorer {dedup}: counts {counts}")
+    require((status["state_count"], status["unique_state_count"]) == counts,
+            f"explorer {dedup}: /.status counts")
+    # A click is one eager level: its hash insert is not gated, so not undone.
+    require(all(n > 0 for k, n in click_launches.items() if k != "hashset_undo"),
+            f"explorer {dedup}: click launches {click_launches}")
+    require(all(n > 0 for n in launches.values()), f"explorer {dedup}: launches {launches}")
+    found = checker.discoveries()
+    checker.assert_properties()
+    for name, p in found.items():
+        checker.assert_discovery(name, p.into_actions())
+    m = checker.metrics()
+    parsed = promexport.parse_openmetrics(text.decode())
+    scraped = {}
+    for key in ("state_count", "unique_state_count", "dispatches", "table_grows", "graph_captures"):
+        name = f"stpu_{key}_total" if key in promexport.COUNTER_KEYS else f"stpu_{key}"
+        scraped[key] = [v for (n, labels), v in parsed.items()
+                        if n == name and ("job", "interactive") in labels]
+        require(scraped[key] == [m[key]], f"explorer {dedup}: /.metrics {key} {scraped[key]}")
+    if trace:
+        for click, split in zip(clicks, click_splits(trace, checker._tracer._epoch, windows)):
+            click.update(split)
+    ms = [c["ms"] for c in clicks]
+    return {
+        "traced": bool(trace),
+        "dedup": dedup, "clicks": clicks, "click_ms": {"min": min(ms), "median": float(np.median(ms)),
+                                                         "max": max(ms)},
+        "init_views_s": init_s, "build_s": build_s, "click_levels": click_levels,
+        "click_table_capacity": click_table, "run_to_completion_wall_s": rtc_wall,
+        "generated": counts[0], "unique": counts[1], "max_depth": checker.max_depth(),
+        "dispatches": m["dispatches"], "graph_captures": m["graph_captures"],
+        "capture_s": m["graph_capture_s"], "table_capacity": m["table_capacity"],
+        "discoveries": {k: len(p) for k, p in found.items()}, "metrics_scraped": scraped,
+        "launches_clicks": click_launches, "launches": launches,
+        "audit": audited(checker, f"explorer {dedup}"),
+    }
+
+
+def click_kernel_phase(runs: dict, rng) -> dict:
+    """The kernels against their plain versions, exactly, at a click's
+    shapes (the click level of the ``explorer`` runs that generated the
+    most: its grid compaction at its bucket and candidate cap, its frontier
+    compaction, its candidates merged into the click-time table, the hash
+    insert of them and its undo) 20 times each, and timed: a click is one
+    eager level over a handful of rows against the whole visited set."""
+    sorted_run = runs["sorted"]
+    top = max(sorted_run["click_levels"], key=lambda r: r["generated"])
+    a = PackedTwoPhaseSys(8).max_actions
+    f, cap, c_table = top["bucket"], top["cand_cap"], sorted_run["click_table_capacity"]
+    n_table = sorted_run["clicks"][-1]["unique"]
+    grid = check_compact("click_grid", *_grid_case(rng, f, a, top["generated"] / (f * a), cap),
+                         reps=20)
+    frontier = check_compact("click_frontier", *_frontier_case(rng, top), reps=20)
+    mask, lanes, _ = _grid_case(rng, f, a, top["generated"] / (f * a), cap)
+    compact_t = time_compact(mask, lanes, cap, grid["n_valid"], 2, 3 * f * 8)
+    # The click's candidate buffer: ``generated`` rows, half hits on table
+    # keys and half fresh keys with in-batch duplicates, the rest pads.
+    share = top["generated"] / cap / 2
+    table, batch = _merge_case(rng, c_table, n_table, cap, hit=share, new=share)
+    merge = check_merge("click", table, batch, reps=20)
+    merge_t = merge_timing(table, batch, merge["n_keep"])
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2**31)))
+    hs = hashset.make(runs["hash"]["click_table_capacity"], "cuda")
+    keys = torch.randint(1, 2**62, (runs["hash"]["clicks"][-1]["unique"],), dtype=DTYPE,
+                         device="cuda", generator=gen)
+    hashset.insert_(hs, *_lanes_of(keys, gen))
+    hlanes = _batch_lanes(gen, cap, top["generated"], 0.4, keys)
+    hash_case = check_hash("click", hs, hlanes, reps=20)
+    # The undo of such an insert (a gated level not committed), against the
+    # plain undo: back to the table as it was.
+    undone = _hash_copy(hs)
+    _, _, filled = hashset.insert_(undone, *hlanes)
+    want = _hash_copy(undone)
+    drop = torch.zeros((), dtype=torch.bool, device="cuda")
+    hashset.undo_plain(want, filled, drop)
+    hashset.undo_(undone, filled, drop)
+    undo_err = int((undone.slots != want.slots).sum()) + int((undone.slots != hs.slots).sum())
+    require(undo_err == 0, "click: the undo left the table other than it was")
+    del undone, want, filled
+    hash_t = hash_timing(hs, hlanes, plain=True)
+    out = {
+        "shape": {"bucket": f, "actions": a, "cand_cap": cap, "generated": top["generated"],
+                  "table_capacity": c_table, "table_rows": n_table},
+        "compact": {**grid, **{k: v for k, v in compact_t.items() if k != "device_ops"},
+                    "frontier": frontier},
+        "merge_insert": {**merge, **{k: v for k, v in merge_t.items() if k != "device_ops"}},
+        "hashset_insert": {**hash_case, **hash_t["insert"]},
+        "hashset_undo": {**hash_t["undo"], "max_abs_err": undo_err},
+    }
+    emit({"phase": "click_kernels", **out})
+    return out
+
+
+def explorer_phase(rng):
+    """The ``explorer`` phase under the sorted and the hash set, then the
+    kernels at a click's shapes; returns the launches by path and the
+    kernel lines."""
+    runs = {}
+    for dedup in ("sorted", "hash"):
+        # The sorted run traces its clicks' levels (the run to completion
+        # pays the tracer's few spans a block too).
+        trace = os.path.join(CKPT_DIR, "explorer.trace.jsonl") if dedup == "sorted" else None
+        runs[dedup] = explorer_run(dedup, trace)
+        emit({"phase": f"explorer_{dedup}", **runs[dedup]})
+        gc.collect()
+        torch.cuda.empty_cache()
+    kernels = click_kernel_phase(runs, rng)
+    launches = {"explorer_rm8_clicks": runs["sorted"]["launches_clicks"],
+                "explorer_rm8": runs["sorted"]["launches"],
+                "explorer_rm8_hash_clicks": runs["hash"]["launches_clicks"],
+                "explorer_rm8_hash": runs["hash"]["launches"]}
+    # The whole runs include their clicks: by path, the clicks and the rest.
+    for tag in ("explorer_rm8", "explorer_rm8_hash"):
+        clicks = launches[f"{tag}_clicks"]
+        launches[tag] = {k: v - clicks[k] for k, v in launches[tag].items()}
+        launches[f"{tag}_run_to_completion"] = launches.pop(tag)
+    return launches, kernels
+
+
+def lane_view(c) -> tuple:
+    """Counts, depth, each level's counts and the discoveries' actions."""
+    return (c.state_count(), c.unique_state_count(), c.max_depth(),
+            [(r["depth"], r["frontier"], r["generated"], r["unique"]) for r in c.level_log],
+            {n: p.into_actions() for n, p in c.discoveries().items()})
+
+
+def same_as_solo(lane, solo, what: str) -> None:
+    """A lane equal to its solo run: :func:`lane_view`, and the visited set:
+    the sorted set's planes bit for bit, the hash set's (key, parent)
+    pairs (the kernel may place contending keys in other slots)."""
+    require(lane_view(lane) == lane_view(solo), f"{what}: lane vs solo")
+    if lane._dedup == "sorted":
+        cap = min(lane._table.capacity, solo._table.capacity)
+        require(all(torch.equal(a[:cap], b[:cap]) for a, b in zip(
+            lane._table[:lane._table.PLANES], solo._table[:solo._table.PLANES])),
+            f"{what}: sorted planes")
+    else:
+        require(torch.equal(_table_pairs(lane._table), _table_pairs(solo._table)),
+                f"{what}: hash pairs")
+
+
+def mux_drive(lanes):
+    """One ``MuxChecker(lanes).run_to_completion()`` timed on the host
+    clock, launch counters zeroed just before and read just after."""
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    mux = MuxChecker(lanes)
+    mux.run_to_completion()
+    torch.cuda.synchronize()
+    return mux, time.perf_counter() - t0, launches_now(lanes[0]._dedup)
+
+
+def mux_line(mux, wall: float, launches: dict, what: str) -> dict:
+    m = mux.metrics()
+    require(all(n > 0 for n in launches.values()), f"{what}: kernel launches {launches}")
+    require(m["mux_lanes_active"] == 0, f"{what}: lanes left running")
+    return {"lanes": mux.k, "wall_s": wall, "dispatches": m["dispatches"],
+            "dispatch_log": mux.dispatch_log, "levels_committed": m["levels_committed"],
+            "dispatches_saved": m["mux_dispatches_saved"], "graph_captures": m["graph_captures"],
+            "capture_s": m["graph_capture_s"], "launches": launches,
+            "generated": [ln.state_count() for ln in mux.lanes],
+            "unique": [ln.unique_state_count() for ln in mux.lanes]}
+
+
+def mux_phase() -> dict:
+    """The multiplexed engine on the card (``xla_mux.MuxChecker``), every
+    lane equal to its solo run on the card: K = 1, 3 and 8 lanes of 2pc
+    rm=4 under the sorted and the hash set (K = 8 in at most a third of 8
+    solo runs' dispatches), stragglers (depth- and state-count-capped lanes
+    beside an uncapped one), K = 3 lanes of Paxos 2c/3s and K = 2 lanes of
+    2pc rm=8 (each exact, with the peak memory), then warm walls of a K = 8
+    run against 8 warm solo runs of rm=4, in turns. Returns the launches by
+    path."""
+    out, launches = {}, {}
+    for dedup in ("sorted", "hash"):
+        model = PackedTwoPhaseSys(4)
+        solos = [model.checker().spawn_xla(dedup=dedup).join() for _ in range(8)]
+        solo = solos[-1]
+        require((solo.state_count(), solo.unique_state_count()) == EXPECTED_2PC[4],
+                f"mux: rm=4 {dedup} solo counts")
+        solo_dispatches = sum(len(c.dispatch_log) for c in solos)
+        lines = {}
+        for k in (1, 3, 8):
+            lanes = [model.checker().spawn_xla(dedup=dedup) for _ in range(k)]
+            mux, wall, got = mux_drive(lanes)
+            for i, ln in enumerate(lanes):
+                same_as_solo(ln, solo, f"mux rm=4 {dedup} K={k} lane {i}")
+                audited(ln, f"mux rm=4 {dedup} K={k} lane {i}")
+            lines[k] = mux_line(mux, wall, got, f"mux rm=4 {dedup} K={k}")
+            launches[f"mux_rm4_k{k}" + ("_hash" if dedup == "hash" else "")] = got
+        require(lines[8]["dispatches"] * 3 <= solo_dispatches,
+                f"mux {dedup}: K=8 took {lines[8]['dispatches']} dispatches, 8 solos {solo_dispatches}")
+        out[f"rm4_{dedup}"] = {"solo_dispatches_8": solo_dispatches,
+                               **{f"k{k}": line for k, line in lines.items()}}
+        if dedup == "sorted":
+            shapers = [lambda b: b.target_max_depth(4), lambda b: b.target_state_count(500),
+                       lambda b: b.target_state_count(1), lambda b: b]
+            strag_solos = [sh(model.checker()).spawn_xla().join() for sh in shapers]
+            lanes = [sh(model.checker()).spawn_xla() for sh in shapers]
+            mux, wall, got = mux_drive(lanes)
+            for i, (ln, s) in enumerate(zip(lanes, strag_solos)):
+                same_as_solo(ln, s, f"mux stragglers lane {i}")
+            require(lanes[0].max_depth() < lanes[3].max_depth()
+                    and lanes[2].state_count() < 500 <= lanes[1].state_count(),
+                    "mux stragglers stopped early")
+            out["stragglers"] = {**mux_line(mux, wall, got, "mux stragglers"),
+                                 "max_depth": [ln.max_depth() for ln in lanes],
+                                 "lanes_active_by_level": [r["lanes_active"]
+                                                           for r in lanes[3].level_log]}
+            launches["mux_stragglers"] = got
+            emit({"phase": "mux_stragglers", **out["stragglers"]})
+            # Warm walls, in turns: 8 solo runs, one K = 8 mux run.
+            turns = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                warm_solos = [model.checker().spawn_xla().join() for _ in range(8)]
+                torch.cuda.synchronize()
+                solo_wall = time.perf_counter() - t0
+                lanes = [model.checker().spawn_xla() for _ in range(8)]
+                mux, wall, _ = mux_drive(lanes)
+                require(all(c.metrics()["graph_captures"] == 0 for c in warm_solos)
+                        and mux.metrics()["graph_captures"] == 0, "mux: a warm run captured")
+                for ln in lanes:
+                    same_as_solo(ln, solo, "mux warm K=8")
+                turns.append({"solos_8_wall_s": solo_wall, "mux_k8_wall_s": wall,
+                              "solo_dispatches": sum(len(c.dispatch_log) for c in warm_solos),
+                              "mux_dispatches": len(mux.dispatch_log)})
+            out["warm_rm4_k8"] = turns
+        emit({"phase": f"mux_rm4_{dedup}", **out[f"rm4_{dedup}"]})
+    # Paxos 2c/3s, three lanes.
+    model = PackedPaxos(2, 3)
+    solo = model.checker().spawn_xla().join()
+    lanes = [model.checker().spawn_xla() for _ in range(3)]
+    mux, wall, got = mux_drive(lanes)
+    for i, ln in enumerate(lanes):
+        require((ln.state_count(), ln.unique_state_count()) == EXPECTED_PAXOS2, f"mux paxos lane {i}")
+        same_as_solo(ln, solo, f"mux paxos lane {i}")
+        ln.assert_discovery("value chosen", ln.discoveries()["value chosen"].into_actions())
+    out["paxos2"] = mux_line(mux, wall, got, "mux paxos")
+    launches["mux_paxos2_k3"] = got
+    emit({"phase": "mux_paxos2", **out["paxos2"]})
+    # 2pc rm=8, two lanes, on a fresh model instance.
+    del solo, lanes, mux
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lanes = [PackedTwoPhaseSys(8).checker().spawn_xla()]
+    lanes.append(lanes[0].model().checker().spawn_xla())
+    mux, wall, got = mux_drive(lanes)
+    for i, ln in enumerate(lanes):
+        require((ln.state_count(), ln.unique_state_count()) == EXPECTED_2PC[8], f"mux rm=8 lane {i}")
+        check_paths(ln)
+        audited(ln, f"mux rm=8 lane {i}")
+    out["rm8_k2"] = {**mux_line(mux, wall, got, "mux rm=8"),
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "table_capacity": lanes[0].metrics()["table_capacity"]}
+    launches["mux_rm8_k2"] = got
+    emit({"phase": "mux_rm8", **out["rm8_k2"]})
+    emit({"phase": "mux_warm_rm4_k8", "turns": out["warm_rm4_k8"]})
+    del lanes, mux
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2917,6 +3333,9 @@ def run_phases() -> int:
     new_paths.update(sym_launches)
     dedup_launches, hk, dk = dedup_phase(model, checker, np.random.default_rng(2025))
     new_paths.update(dedup_launches)
+    explorer_launches, ck = explorer_phase(np.random.default_rng(2026))
+    new_paths.update(explorer_launches)
+    new_paths.update(mux_phase())
     rng = np.random.default_rng(2024)
     b1 = compact_phase(checker, rng)
     m_main = max(r["cand_cap"] for r in checker.level_log)
@@ -2936,7 +3355,10 @@ def run_phases() -> int:
         new_shapes = rk[name]
         delta = {"compact": dk["level"]["compact"], "merge_insert": {
             "level": dk["level"]["merge_insert"], "flush": dk["flush"]}}[name]
-        errs = [main, px[name], ak[name], sk[name], *new_shapes.values(), dk["level"][name]]
+        errs = [main, px[name], ak[name], sk[name], *new_shapes.values(), dk["level"][name],
+                ck[name]]
+        if name == "compact":
+            errs.append(ck[name]["frontier"])
         if name == "merge_insert":
             errs.append(dk["flush"])
         kernels.append({
@@ -2945,7 +3367,7 @@ def run_phases() -> int:
             "bound_by": "bytes", **main,
             "max_abs_err": max(e["max_abs_err"] for e in errs),
             "paxos3": px[name], "ladder_and_hv_shapes": new_shapes, "abd3": ak[name],
-            "sym14": sk[name], "delta9": delta,
+            "sym14": sk[name], "delta9": delta, "click": ck[name],
         })
     notes = {
         "hashset_insert": "insert, jitted JAX (a while_loop of scatter-min rounds); no pallas_call",
@@ -2958,6 +3380,8 @@ def run_phases() -> int:
             "replaces": "stateright_tpu/ops/hashset.py:50", "replaces_note": notes[name],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **{k: v for k, v in line.items() if k != "device_ops"},
+            "click": {k: v for k, v in ck[name].items() if k != "device_ops"},
+            "max_abs_err": max(line["max_abs_err"], ck[name]["max_abs_err"]),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

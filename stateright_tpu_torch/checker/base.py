@@ -75,6 +75,14 @@ class Checker:
             self._run_block()
         return self
 
+    # --- on-demand hooks (no-ops for batch checkers, checker.rs:259-266) --
+
+    def check_fingerprint(self, fingerprint: int) -> None:
+        pass
+
+    def run_to_completion(self) -> None:
+        pass
+
     # --- derived API ------------------------------------------------------
 
     def discovery(self, name: str) -> Optional[Path]:

@@ -3,9 +3,8 @@
 Counterpart of ``stateright_tpu/checker/builder.py`` (stateright's
 ``src/checker.rs:52-248``). The strategies are the host engines
 ``spawn_bfs``/``spawn_dfs`` (with ``threads(n)`` their parallel forms) and
-``spawn_xla()``, the GPU frontier-expansion engine. The reference's
-``spawn_on_demand`` and ``serve`` wait for the port of on-demand checking and
-the Explorer (ROADMAP A10).
+``spawn_xla()``, the GPU frontier-expansion engine, with the demand-driven
+``spawn_on_demand`` (host or GPU engine) and ``serve``, the Explorer.
 """
 
 from __future__ import annotations
@@ -59,6 +58,38 @@ class CheckerBuilder:
         from .search import DfsChecker
 
         return DfsChecker(self)
+
+    def spawn_on_demand(self, engine: str = "host", **spawn_kwargs) -> Checker:
+        """Demand-driven search: computes nothing until asked
+        (checker.rs:171). ``engine="xla"`` runs it on the GPU engine (packed
+        models; ``spawn_kwargs`` go to ``spawn_xla``, ``device`` included):
+        a ``check_states`` click runs one superstep over the clicked rows
+        and ``run_to_completion()`` hands over to the fused block. The host
+        engine takes ``block_size`` (default 1): at stateright's 1500 a
+        ``check_fingerprint`` pre-computes up to that many states of the
+        clicked subtree (on_demand.rs:209-218)."""
+        if engine == "xla":
+            from .device_on_demand import DeviceOnDemandChecker
+
+            return DeviceOnDemandChecker(self, **spawn_kwargs)
+        if engine != "host":
+            raise ValueError(f"engine must be 'host' or 'xla': {engine!r}")
+        unknown = set(spawn_kwargs) - {"block_size"}
+        if unknown:
+            raise TypeError(f"spawn kwargs {sorted(unknown)} only apply to engine=\"xla\"")
+        from .on_demand import OnDemandChecker
+
+        return OnDemandChecker(self, **spawn_kwargs)
+
+    def serve(self, addresses, engine: str = "auto", **spawn_kwargs) -> Checker:
+        """Starts the Explorer web service and blocks until it is stopped
+        (checker.rs:137; ``checker/explorer.py``). A packed model is
+        explored on the GPU engine by default (``engine="auto"``; ``device``
+        and the other ``spawn_xla`` arguments ride in ``spawn_kwargs``);
+        ``engine="host"`` forces the host engine. Returns the checker."""
+        from .explorer import serve
+
+        return serve(self, addresses, engine=engine, **spawn_kwargs)
 
     def spawn_xla(self, **kwargs) -> Checker:
         """Level-synchronous BFS with the whole frontier expanded per step

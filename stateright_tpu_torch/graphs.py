@@ -39,6 +39,12 @@ the gate.
   (their intermediates are dead when a replay ends, and no two replays run
   at once); a table growth frees it and starts another.
 
+The multiplexed engine (``xla_mux.py``) keeps its own entries in the same
+cache: a :class:`MuxCarry` (one carry a lane and the mux's block scalars)
+per lane count and shape, and one program per :func:`mux_key`, whose graph
+holds every lane's gated level; a table growth drops them with the solo
+programs of the old capacity.
+
 Graph replays run no Python, so the kernels' launch counters would stop
 counting: each program records how many launches of each kernel its graph
 holds, and :meth:`Program.run` adds them per replay.
@@ -145,6 +151,26 @@ class Carry:
         return out
 
 
+class MuxCarry:
+    """The static buffers of the multiplexed level (``xla_mux.py``) of ``k``
+    lanes at one table capacity of one visited-set structure: one
+    :class:`Carry` a lane, and the mux's own block scalars ``s`` in the
+    :data:`SLOTS` layout, of which it uses ``committed`` (levels any lane
+    committed), ``live`` (the gate of the next level), the overflow flags
+    (ORed over the lanes a level ran) and ``budget``."""
+
+    def __init__(self, device, words: int, n_props: int, levels: int, table_capacity: int,
+                 k: int, dedup: str = "sorted"):
+        self.lanes = [Carry(device, words, n_props, levels, table_capacity, dedup=dedup)
+                      for _ in range(k)]
+        self.s = torch.zeros(len(SLOTS), dtype=DTYPE, device=device)
+
+    def frontier(self, run_cap: int) -> None:
+        """Allocate every lane's ``[run_cap, W]`` frontier (before a capture)."""
+        for c in self.lanes:
+            c.frontier(run_cap)
+
+
 class Program:
     """One shape key's level: a captured graph, or None to run eagerly."""
 
@@ -205,6 +231,11 @@ class ProgramCache:
         #: ``(run_cap, rows, cand_cap, table_capacity, levels_per_dispatch,
         #: hv_cap, dedup, max_probes, sym_tag)`` -> Program.
         self.programs: Dict[Tuple[int, ...], Program] = {}
+        #: The multiplexed engine's (``xla_mux.py``): ``(k, table_capacity,
+        #: levels_per_dispatch, dedup)`` -> MuxCarry, and :func:`mux_key` ->
+        #: Program.
+        self.mux_carries: Dict[Tuple, MuxCarry] = {}
+        self.mux_programs: Dict[Tuple, Program] = {}
 
     def carry(self, words: int, n_props: int, table_capacity: int, levels: int,
               n_hv: int = 0, hv_cap: int = 0, dedup: str = "sorted") -> Carry:
@@ -213,6 +244,27 @@ class ProgramCache:
             self.carries[key] = Carry(self.device, words, n_props, levels, table_capacity,
                                       n_hv, hv_cap, dedup)
         return self.carries[key]
+
+    def mux_carry(self, words: int, n_props: int, table_capacity: int, levels: int, k: int,
+                  dedup: str) -> MuxCarry:
+        key = (k, table_capacity, levels, dedup)
+        if key not in self.mux_carries:
+            self.mux_carries[key] = MuxCarry(self.device, words, n_props, levels, table_capacity,
+                                             k, dedup)
+        return self.mux_carries[key]
+
+    def make_mux(self, key, carry: MuxCarry, body: Callable[[], None], graph: bool) -> Program:
+        """The multiplexed program of ``key``; with ``graph``, ``body`` is
+        captured after the mux's gate and budget are zeroed, so that the
+        warm-up level is dead in every lane."""
+        if graph:
+            carry.s[S["budget"]] = 0
+            carry.s[S["live"]] = 0
+            prog = Program(carry, *capture(body, self.pool, self.side))
+        else:
+            prog = Program(carry)
+        self.mux_programs[key] = prog
+        return prog
 
     def make(self, key, carry: Carry, body: Callable[[], None], graph: bool) -> Program:
         """The program of ``key``; with ``graph``, ``body`` is captured, after
@@ -229,8 +281,9 @@ class ProgramCache:
         """Forget the carry of ``shape`` = ``(table_capacity,
         levels_per_dispatch, hv_cap, dedup)`` and every program on it, of
         every symmetry tag and probe budget: those of another tag than the
-        grown checker's are made anew when a check of that tag needs them.
-        On a card, the
+        grown checker's are made anew when a check of that tag needs them,
+        and the multiplexed programs and carries at that capacity. On a
+        card, the
         memory of the dropped graphs and carry is handed back before the
         programs at the grown capacity are made (a wide model's largest
         bucket could not hold two levels' worth at once), and later
@@ -239,10 +292,29 @@ class ProgramCache:
         for key in [k for k in self.programs if k[3:7] == shape]:
             del self.programs[key]
         self.carries.pop(shape, None)
+        table_capacity, levels, hv_cap, dedup = shape
+        if hv_cap == 0:  # no multiplexed lane has host-verified properties
+            for key in [k for k in self.mux_programs if mux_shape(k) == shape]:
+                del self.mux_programs[key]
+            for key in [k for k in self.mux_carries if k[1:] == (table_capacity, levels, dedup)]:
+                del self.mux_carries[key]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
             self.pool = torch.cuda.graph_pool_handle()
+
+
+def mux_key(k: int, run_cap: int, cand_cap: int, levels: int, sym_tag, max_probes: int,
+            dedup: str, table_capacity: int) -> Tuple:
+    """The key of a multiplexed program: ``k`` lanes' levels at bucket
+    ``run_cap`` and candidate cap ``cand_cap`` under the lanes' shape."""
+    return ("mux", k, run_cap, cand_cap, levels, sym_tag, max_probes, dedup, table_capacity)
+
+
+def mux_shape(key: Tuple) -> Tuple[int, int, int, str]:
+    """The carry shape ``(table_capacity, levels_per_dispatch, hv_cap,
+    dedup)`` of a :func:`mux_key`, as :meth:`ProgramCache.drop` takes it."""
+    return (key[8], key[4], 0, key[7])
 
 
 def graph_inputs(model) -> dict:

@@ -171,8 +171,8 @@ def sort_threads(layout, n: int, words: torch.Tensor, pc_span: int) -> torch.Ten
 def main(argv=None) -> None:
     """CLI mirroring increment.rs:199-254. ``check`` runs the GPU engine
     (``spawn_xla``, on the card); ``check-host`` and ``check-sym`` run the
-    host DFS, the latter with symmetry reduction. ``explore`` waits for the
-    Explorer (ROADMAP A10)."""
+    host DFS, the latter with symmetry reduction. ``explore`` serves the
+    Explorer on the host engine (``serve``)."""
     import sys
 
     from ..report import WriteReporter
@@ -195,13 +195,19 @@ def main(argv=None) -> None:
         )
         Increment(thread_count).checker().symmetry().spawn_dfs().report(WriteReporter())
     elif cmd == "explore":
-        raise NotImplementedError("explore waits for the Explorer (ROADMAP A10)")
+        address = args.pop(0) if args else "localhost:3000"
+        print(
+            f"Exploring the state space of increment with {thread_count} "
+            f"threads on {address}."
+        )
+        Increment(thread_count).checker().serve(address)
     else:
         print("USAGE:")
         print("  increment check [THREAD_COUNT]        (GPU engine)")
         print("  increment check-host [THREAD_COUNT]   (sequential host DFS)")
         print("  increment check-sym [THREAD_COUNT]")
         print("  increment check-xla [THREAD_COUNT]    (alias of check)")
+        print("  increment explore [THREAD_COUNT] [ADDRESS]")
 
 
 if __name__ == "__main__":

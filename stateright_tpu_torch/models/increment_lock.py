@@ -180,8 +180,8 @@ class PackedIncrementLock(IncrementLock):
 def main(argv=None) -> None:
     """CLI mirroring increment_lock.rs:109-161. ``check`` runs the GPU engine
     (``spawn_xla``, on the card); ``check-host`` and ``check-sym`` run the
-    host DFS, the latter with symmetry reduction. ``explore`` waits for the
-    Explorer (ROADMAP A10)."""
+    host DFS, the latter with symmetry reduction. ``explore`` serves the
+    Explorer on the host engine (``serve``)."""
     import sys
 
     from ..report import WriteReporter
@@ -204,13 +204,19 @@ def main(argv=None) -> None:
         )
         IncrementLock(thread_count).checker().symmetry().spawn_dfs().report(WriteReporter())
     elif cmd == "explore":
-        raise NotImplementedError("explore waits for the Explorer (ROADMAP A10)")
+        address = args.pop(0) if args else "localhost:3000"
+        print(
+            f"Exploring the state space of increment_lock with {thread_count} "
+            f"threads on {address}."
+        )
+        IncrementLock(thread_count).checker().serve(address)
     else:
         print("USAGE:")
         print("  increment_lock check [THREAD_COUNT]        (GPU engine)")
         print("  increment_lock check-host [THREAD_COUNT]   (sequential host DFS)")
         print("  increment_lock check-sym [THREAD_COUNT]")
         print("  increment_lock check-xla [THREAD_COUNT]    (alias of check)")
+        print("  increment_lock explore [THREAD_COUNT] [ADDRESS]")
 
 
 if __name__ == "__main__":

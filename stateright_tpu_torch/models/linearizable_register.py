@@ -22,8 +22,8 @@ ordered network, over :class:`~stateright_tpu_torch.packing.FifoLanes`) are
 the GPU forms, at 2 servers with 2 or 3 clients; their delivery bodies run
 batched over the frontier and write in place into each action's slice of
 one ``[F, A, W]`` grid. ``main`` has ``check``/``check-xla`` (the GPU
-engine), ``check-host`` (the host DFS); ``explore`` waits for the Explorer
-(ROADMAP A10) and ``spawn`` for the UDP runtime (ROADMAP A7).
+engine), ``check-host`` (the host DFS); ``explore`` serves the Explorer
+and ``spawn`` starts the UDP runtime.
 """
 
 from __future__ import annotations
@@ -1081,7 +1081,7 @@ def main(argv=None, device=None) -> None:
     networks fall back to the host DFS at the command line's 3-server
     shape, as the reference does. ``check-host`` runs the host DFS,
     ``spawn`` starts three servers on UDP ports 3000-3002 of localhost, and
-    ``explore`` waits for the Explorer (ROADMAP A10)."""
+    ``explore`` serves the Explorer on the host engine (``serve``)."""
     import sys
 
     from ..report import WriteReporter
@@ -1120,7 +1120,14 @@ def main(argv=None, device=None) -> None:
         linearizable_register_model(client_count, 3, network).checker().spawn_dfs().report(
             WriteReporter())
     elif cmd == "explore":
-        raise NotImplementedError("explore waits for the Explorer (ROADMAP A10)")
+        client_count = int(args.pop(0)) if args else 2
+        address = args.pop(0) if args else "localhost:3000"
+        network = Network.from_name(args.pop(0)) if args else None
+        print(
+            f"Exploring state space for linearizable register with "
+            f"{client_count} clients on {address}."
+        )
+        linearizable_register_model(client_count, 3, network).checker().serve(address)
     elif cmd == "spawn":
         from ..actor.spawn import json_codec, spawn
 
@@ -1144,6 +1151,7 @@ def main(argv=None, device=None) -> None:
         print("      host DFS at the command line's 3-server shape)")
         print("  linearizable-register check-host [CLIENT_COUNT] [NETWORK]  (sequential host DFS)")
         print("  linearizable-register check-xla   (alias of check)")
+        print("  linearizable-register explore [CLIENT_COUNT] [ADDRESS] [NETWORK]")
         print("  linearizable-register spawn")
         print(
             f"NETWORK: {' | '.join(Network.names())}"

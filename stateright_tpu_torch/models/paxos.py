@@ -15,8 +15,8 @@ A term is coupled to the life of a client request — each Put starts a new
 ballot — matching the classic single-decree presentation (paxos.rs:44-47).
 
 :class:`PackedPaxos` is the GPU form; its delivery bodies run batched over
-the frontier and over each message family's parameter table. The command
-line entry point (``check``/``explore``/``spawn``) waits for a later slice.
+the frontier and over each message family's parameter table. ``main`` is the
+command line (``check``, ``check-host``, ``explore``, ``spawn``).
 """
 
 from __future__ import annotations
@@ -752,8 +752,8 @@ def main(argv=None, device=None) -> None:
     ``device`` names the CPU); a named NETWORK goes to the host DFS, as in
     the reference, since the packed codec models the default network.
     ``check-host`` runs the host DFS, ``spawn`` starts the three-server
-    cluster on UDP ports 3000-3002 of localhost, and ``explore`` waits for
-    the Explorer (ROADMAP A10)."""
+    cluster on UDP ports 3000-3002 of localhost, and ``explore`` serves
+    the Explorer on the host engine (``serve``)."""
     import sys
 
     from ..report import WriteReporter
@@ -777,7 +777,14 @@ def main(argv=None, device=None) -> None:
         print(f"Model checking Single Decree Paxos with {client_count} clients.")
         paxos_model(client_count, 3, network).checker().spawn_dfs().report(WriteReporter())
     elif cmd == "explore":
-        raise NotImplementedError("explore waits for the Explorer (ROADMAP A10)")
+        client_count = int(args.pop(0)) if args else 2
+        address = args.pop(0) if args else "localhost:3000"
+        network = Network.from_name(args.pop(0)) if args else None
+        print(
+            f"Exploring state space for Single Decree Paxos with "
+            f"{client_count} clients on {address}."
+        )
+        paxos_model(client_count, 3, network).checker().serve(address)
     elif cmd == "spawn":
         from ..actor.spawn import json_codec, spawn
 
@@ -799,6 +806,7 @@ def main(argv=None, device=None) -> None:
         print("  paxos check [CLIENT_COUNT] [NETWORK]       (GPU engine; a NETWORK: host DFS)")
         print("  paxos check-host [CLIENT_COUNT] [NETWORK]  (sequential host DFS)")
         print("  paxos check-xla [CLIENT_COUNT]             (alias of check)")
+        print("  paxos explore [CLIENT_COUNT] [ADDRESS] [NETWORK]")
         print("  paxos spawn")
         print(f"NETWORK: {' | '.join(Network.names())}")
 

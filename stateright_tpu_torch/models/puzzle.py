@@ -129,8 +129,8 @@ class PackedPuzzle(Puzzle):
 def main(argv=None) -> None:
     """Command line in the manner of stateright's examples; the doc board
     (lib.rs:93-96) is the default. ``check`` runs the GPU engine,
-    ``check-host`` the host BFS; ``explore`` waits for the Explorer
-    (ROADMAP A10)."""
+    ``check-host`` the host BFS; ``explore`` serves the Explorer
+    on the host engine (``serve``)."""
     import sys
     from math import isqrt
 
@@ -161,11 +161,15 @@ def main(argv=None) -> None:
         print("Model checking the sliding puzzle.")
         Puzzle(board, side).checker().spawn_bfs().report(WriteReporter())
     elif cmd == "explore":
-        raise NotImplementedError("explore waits for the Explorer (ROADMAP A10)")
+        board, side = pop_board()
+        address = args.pop(0) if args else "localhost:3000"
+        print(f"Exploring the sliding puzzle state space on {address}.")
+        Puzzle(board, side).checker().serve(address)
     else:
         print("USAGE:")
         print("  puzzle check [BOARD]        (GPU engine)")
         print("  puzzle check-host [BOARD]   (sequential host BFS)")
+        print("  puzzle explore [BOARD] [ADDRESS]")
         print("BOARD is comma-separated, e.g. 1,4,2,3,5,8,6,7,0")
 
 

@@ -19,8 +19,8 @@ and :class:`PackedSingleCopyRegisterOrdered` (the ordered network, over
 :class:`~stateright_tpu_torch.packing.FifoLanes`) are the GPU forms; their
 delivery bodies run batched over the frontier and over each message
 family's parameter table (``actor/register.py``'s ``PackedClientsMixin``).
-The command line entry point (``check``/``explore``/``spawn``) waits for a
-later slice.
+``main`` is the command line (``check``, ``check-host``, ``explore``,
+``spawn``).
 """
 
 from __future__ import annotations
@@ -473,7 +473,7 @@ def main(argv=None, device=None) -> None:
     for the ordered network; on the card unless ``device`` names the CPU);
     other networks go to the host DFS. ``check-host`` runs the host DFS,
     ``spawn`` starts the server on UDP port 3000 of localhost, and
-    ``explore`` waits for the Explorer (ROADMAP A10)."""
+    ``explore`` serves the Explorer on the host engine (``serve``)."""
     import sys
 
     from ..report import WriteReporter
@@ -507,7 +507,14 @@ def main(argv=None, device=None) -> None:
         single_copy_register_model(client_count, 1, network).checker().spawn_dfs().report(
             WriteReporter())
     elif cmd == "explore":
-        raise NotImplementedError("explore waits for the Explorer (ROADMAP A10)")
+        client_count = int(args.pop(0)) if args else 2
+        address = args.pop(0) if args else "localhost:3000"
+        network = Network.from_name(args.pop(0)) if args else None
+        print(
+            f"Exploring state space for single-copy register with "
+            f"{client_count} clients on {address}."
+        )
+        single_copy_register_model(client_count, 1, network).checker().serve(address)
     elif cmd == "spawn":
         from ..actor.spawn import json_codec, spawn
 
@@ -524,6 +531,7 @@ def main(argv=None, device=None) -> None:
         print("  single-copy-register check [CLIENT_COUNT] [NETWORK]       (GPU engine)")
         print("  single-copy-register check-host [CLIENT_COUNT] [NETWORK]  (sequential host DFS)")
         print("  single-copy-register check-xla [NETWORK]                  (alias of check)")
+        print("  single-copy-register explore [CLIENT_COUNT] [ADDRESS] [NETWORK]")
         print("  single-copy-register spawn")
         print(f"NETWORK: {' | '.join(Network.names())}")
 

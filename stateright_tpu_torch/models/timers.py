@@ -243,8 +243,8 @@ def main(argv=None) -> None:
     """Command line in the manner of timers.rs:115-164, each ``check``
     bounded to 100,000 states. ``check`` runs the GPU engine (another
     network falls back to the host DFS: the packed codec models the
-    default network), ``check-host`` the host DFS; ``explore`` waits for
-    the Explorer (ROADMAP A10)."""
+    default network), ``check-host`` the host DFS; ``explore`` serves
+    the Explorer on the host engine (``serve``)."""
     import sys
 
     from ..report import WriteReporter
@@ -262,12 +262,16 @@ def main(argv=None) -> None:
         timers_model(3, network).checker().target_state_count(100_000).spawn_dfs().report(
             WriteReporter())
     elif cmd == "explore":
-        raise NotImplementedError("explore waits for the Explorer (ROADMAP A10)")
+        address = args.pop(0) if args else "localhost:3000"
+        network = Network.from_name(args.pop(0)) if args else None
+        print(f"Exploring state space for Pingers on {address}.")
+        timers_model(3, network).checker().serve(address)
     else:
         print("USAGE:")
         print("  timers check [NETWORK]       (GPU engine)")
         print("  timers check-host [NETWORK]  (sequential host DFS)")
         print("  timers check-xla             (alias of check)")
+        print("  timers explore [ADDRESS] [NETWORK]")
         print(f"NETWORK: {' | '.join(Network.names())}")
 
 

@@ -336,8 +336,8 @@ def main(argv=None, device=None) -> None:
     """Command line in the manner of 2pc.rs:174-255. ``check`` runs the GPU
     engine (``spawn_xla``, on the card unless ``device`` names the CPU);
     ``check-host`` runs the host DFS and ``check-sym`` the host DFS with
-    symmetry reduction (the object ``representative()``). ``explore`` waits
-    for the Explorer (ROADMAP A10)."""
+    symmetry reduction (the object ``representative()``). ``explore`` serves
+    the Explorer on the host engine (``serve``)."""
     import sys
 
     from ..report import WriteReporter
@@ -358,13 +358,19 @@ def main(argv=None, device=None) -> None:
         )
         TwoPhaseSys(rm_count).checker().symmetry().spawn_dfs().report(WriteReporter())
     elif cmd == "explore":
-        raise NotImplementedError("explore waits for the Explorer (ROADMAP A10)")
+        address = args.pop(0) if args else "localhost:3000"
+        print(
+            f"Exploring state space for two phase commit with {rm_count} "
+            f"resource managers on {address}."
+        )
+        TwoPhaseSys(rm_count).checker().serve(address)
     else:
         print("USAGE:")
         print("  two-phase-commit check [RM_COUNT]        (GPU engine)")
         print("  two-phase-commit check-host [RM_COUNT]   (sequential host DFS)")
         print("  two-phase-commit check-sym [RM_COUNT]")
         print("  two-phase-commit check-xla [RM_COUNT]    (alias of check)")
+        print("  two-phase-commit explore [RM_COUNT] [ADDRESS]")
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 service/fleet run dir into ONE Perfetto-loadable Chrome trace.
 
 The port's own copy of ``stateright_tpu/obs/collect.py``; the port has no
-service yet (ROADMAP A10), but the merger reads any directory of span
+service yet (ROADMAP A10c), but the merger reads any directory of span
 files, a set of port checkers' traces included.
 
 A traced run scatters span files across the process tree — the fleet's

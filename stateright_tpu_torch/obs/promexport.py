@@ -2,8 +2,8 @@
 
 The port's own copy of ``stateright_tpu/obs/promexport.py``, whole:
 :func:`pool_samples` renders any pool snapshot handed to it, though the
-port has no service yet, and ``GET /.metrics`` waits for the Explorer
-(ROADMAP A10). Turns any ``checker.metrics()`` snapshot, pool snapshot,
+port has no service yet (ROADMAP A10c); the Explorer's ``GET /.metrics``
+renders its checker's snapshot. Turns any ``checker.metrics()`` snapshot, pool snapshot,
 or :mod:`~stateright_tpu_torch.obs.timeseries` row into the OpenMetrics
 text format Prometheus-shaped scrapers consume. The one difference:
 :func:`build_info_sample` labels the build with torch's version, not

@@ -242,9 +242,21 @@ def test_the_command_line_prints_the_references_done_line(monkeypatch, capsys):
     assert "Done. states=875, unique=544, depth=25" in lines[0]
     dfs = port.linearizable_register_model(2, 2).checker().spawn_dfs().join()
     dfs.assert_discovery("value chosen", dfs.discoveries()["value chosen"].into_actions())
-    # ``spawn`` runs the UDP cluster (``tests/test_torch_cli.py``).
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        port.main(["explore"])
+    # ``spawn`` runs the UDP cluster (``tests/test_torch_cli.py``). ``explore``
+    # serves the Explorer (recorded here, not bound) on the model and address
+    # the reference's serves, printing its line.
+    from stateright_tpu.checker import explorer as ref_explorer
+    from stateright_tpu_torch.checker import explorer as port_explorer
+
+    served, printed = {}, []
+    for mod, tag in ((port_explorer, "port"), (ref_explorer, "ref")):
+        monkeypatch.setattr(mod, "serve", lambda b, addr, tag=tag, **kw: served.setdefault(
+            tag, ([type(a).__name__ for a in b._model.actors], addr, kw)))
+    for mod in (port, ref):
+        mod.main(["explore"])
+        printed.append(capsys.readouterr().out)
+    assert printed[0] == printed[1] and "localhost:3000" in printed[0]
+    assert served["port"] == served["ref"]
 
 
 def test_other_sizes_run_on_the_host_engines():

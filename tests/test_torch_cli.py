@@ -15,8 +15,8 @@ linearizable-register) held against the JAX package's.
   the reference's ``spawn_xla`` in ``test_torch_obs.py``;
 - ``spawn`` builds the reference's cluster and prints its lines, with the
   runtime replaced by a recorder, so no fixed UDP port is bound;
-- usage, and ``explore``, the one subcommand that still raises (ROADMAP
-  A10).
+- usage, and ``explore``, which serves the Explorer on the reference's
+  model and address (the server recorded, not bound).
 """
 
 import io
@@ -133,10 +133,21 @@ def test_spawn_builds_the_references_cluster(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", sorted(MODULES))
-def test_usage_and_explore(name):
-    mine, _ = MODULES[name]
+def test_usage_and_explore(name, monkeypatch):
+    """Usage names ``explore``, which serves the Explorer (recorded here,
+    not bound) on the model and address the reference's serves, printing
+    its line."""
+    from stateright_tpu.checker import explorer as ref_explorer
+    from stateright_tpu_torch.checker import explorer as port_explorer
+
+    mine, theirs = MODULES[name]
     out = _run(mine.main)
     assert out.startswith("USAGE:") and "check-host" in out and "spawn" in out
-    assert "explore" not in out
-    with pytest.raises(NotImplementedError, match="A10"):
-        _run(mine.main, "explore")
+    assert " explore [CLIENT_COUNT] [ADDRESS] [NETWORK]" in out
+    served = {}
+    for mod, tag in ((port_explorer, "port"), (ref_explorer, "ref")):
+        monkeypatch.setattr(mod, "serve", lambda b, addr, tag=tag, **kw: served.setdefault(
+            tag, ([type(a).__name__ for a in b._model.actors], addr, kw)))
+    args = ("explore", "1", "127.0.0.1:3005", "ordered")
+    assert _run(mine.main, *args) == _run(theirs.main, *args)
+    assert served["port"] == served["ref"] and served["port"][1] == "127.0.0.1:3005"

@@ -146,14 +146,29 @@ def test_increment_lock_symmetry_agrees_on_properties():
 
 
 @pytest.mark.parametrize("module", [inc, lock])
-def test_command_line(module, capsys):
+def test_command_line(module, capsys, monkeypatch):
     module.main(["check-host", "2"])
     module.main(["check-sym", "2"])
     module.main([])
     out = capsys.readouterr().out
     assert out.count("Done.") == 2 and "USAGE:" in out and "symmetry reduction" in out
-    with pytest.raises(NotImplementedError, match="A10"):
-        module.main(["explore"])
+    assert " explore [THREAD_COUNT] [ADDRESS]" in out
+    # ``explore`` serves the Explorer (recorded here, not bound) on the
+    # object model and address the reference's serves, printing its line.
+    from stateright_tpu.checker import explorer as ref_explorer
+    from stateright_tpu_torch.checker import explorer as port_explorer
+
+    ref_module = {inc: ref_inc, lock: ref_lock}[module]
+    served, printed = {}, []
+    for mod, tag in ((port_explorer, "port"), (ref_explorer, "ref")):
+        monkeypatch.setattr(mod, "serve", lambda b, addr, tag=tag, **kw: served.setdefault(
+            tag, (type(b._model).__name__, b._model.init_states()[0], addr, kw)))
+    for m in (module, ref_module):
+        m.main(["explore", "2", "127.0.0.1:3001"])
+        printed.append(capsys.readouterr().out)
+    assert printed[0] == printed[1] and "127.0.0.1:3001" in printed[0]
+    (name, init, addr, kw), (rname, rinit, raddr, rkw) = served["port"], served["ref"]
+    assert (name, repr(init), addr, kw) == (rname, repr(rinit), raddr, rkw)
 
 
 @pytest.mark.parametrize("cls,ref_cls", [(inc.PackedIncrement, ref_inc.PackedIncrement),

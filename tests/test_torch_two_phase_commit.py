@@ -79,13 +79,22 @@ def test_command_line_equals_the_references(cmd, capsys):
     assert got.splitlines()[0] == want.splitlines()[0]
 
 
-def test_command_line_usage_and_explore():
-    import io
-    from contextlib import redirect_stdout
+def test_command_line_usage_and_explore(monkeypatch, capsys):
+    port.main([])
+    out = capsys.readouterr().out
+    assert "USAGE:" in out and "check-sym" in out and " explore [RM_COUNT] [ADDRESS]" in out
+    # ``explore`` serves the Explorer (recorded here, not bound) on the
+    # object model and address the reference's serves, printing its line.
+    from stateright_tpu.checker import explorer as ref_explorer
+    from stateright_tpu_torch.checker import explorer as port_explorer
 
-    out = io.StringIO()
-    with redirect_stdout(out):
-        port.main([])
-    assert "USAGE:" in out.getvalue() and "check-sym" in out.getvalue()
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.main(["explore"])
+    served, printed = {}, []
+    for mod, tag in ((port_explorer, "port"), (ref_explorer, "ref")):
+        monkeypatch.setattr(mod, "serve", lambda b, addr, tag=tag, **kw: served.setdefault(
+            tag, (type(b._model).__name__, b._model.init_states()[0], addr, kw)))
+    for mod in (port, ref):
+        mod.main(["explore", "3"])
+        printed.append(capsys.readouterr().out)
+    assert printed[0] == printed[1] and "3 resource managers on localhost:3000" in printed[0]
+    (name, init, addr, kw), (rname, rinit, raddr, rkw) = served["port"], served["ref"]
+    assert (name, repr(init), addr, kw) == ("TwoPhaseSys", repr(rinit), raddr, rkw)
