@@ -145,9 +145,26 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    a third of 8 solo runs' dispatches), stragglers, K = 3 lanes of Paxos
    2c/3s and K = 2 lanes of rm=8 (exact, peak memory), and warm walls of a
    K = 8 run against 8 warm solo runs, in turns;
-14. prints the ``{"kernels": [...]}`` line (launches summed over every
+14. drives the sharded engine (``sharded``): ``PackedTwoPhaseSys(8)
+   .checker().spawn_xla(mesh=default_mesh(D))``, D shards on this card,
+   at D = 2, 4 and 8 under the sorted set, each equal to the single-chip
+   engine level by level, every discovery re-executed, a clean audit,
+   every key in its owner shard, cold and then warm (capturing nothing)
+   on one model instance beside the single-chip engine's cold and warm
+   runs there, with walls, captures, growths by kind and peak memory, and
+   one more warm D = 8 run under ``torch.profiler`` (device time by kernel,
+   idle share); ``default_mesh()``, one shard a card, on the single-chip
+   engine; rm=8 at D = 8 under the hash set and at D = 4 under the delta set; rm=5
+   at D = 8 equal to its CPU run bit for bit (every shard's planes); Paxos
+   2c/3s at D = 4, the host-verified single-copy-register 2c/2s at D = 8
+   and symmetric rm=8 at D = 8, each equal to the single-chip engine; an
+   rm=8 checkpoint saved at D = 8 and resumed on the single-chip engine
+   and at D = 4, and a single-chip file resumed at D = 8; and
+   (``shard_kernels``) every kernel call of the widest sharded level held
+   against its plain version, the widest shard's timed;
+15. prints the ``{"kernels": [...]}`` line (launches summed over every
    main-path run: rm=8, Paxos 3c/3s, single-copy-register, the
-   host-verified runs and the paths of items 9 to 13, each also by path)
+   host-verified runs and the paths of items 9 to 14, each also by path)
    and, last, the device line.
 
 Every line but the nvidia-smi one is a JSON object. Any failed check
@@ -202,7 +219,9 @@ from stateright_tpu_torch.obs import heartbeat, promexport
 from stateright_tpu_torch.ops import _cuda, deltaset, hashset, sortedset
 from stateright_tpu_torch.ops.compact import compact, compact_plain
 from stateright_tpu_torch.ops.merge import merge_insert, merge_insert_plain
-from stateright_tpu_torch.ops.words import DTYPE, PAD_KEY, fold_key, from_u32
+from stateright_tpu_torch.ops.words import DTYPE, PAD_KEY, fold_key, from_u32, to_u32
+from stateright_tpu_torch.parallel import default_mesh, owner_bits
+from stateright_tpu_torch.parallel import sharded as sharded_mod
 from stateright_tpu_torch.sym import canonicalize_host, compile_canon
 from stateright_tpu_torch.xla import XlaChecker
 from stateright_tpu_torch.xla_mux import MuxChecker
@@ -1474,13 +1493,14 @@ PAXOS3_SAVE_DEPTH = 8
 
 
 def run_to_depth(model, depth: int, **kw):
-    """A search of ``model`` stopped with the frontier at ``depth`` intact:
-    ``target_max_depth`` bounds each block's level budget, and the loop stops
-    before the next dispatch's entry check would retire the frontier."""
+    """A search of ``model`` (on a mesh too, with ``mesh=``) stopped with the
+    frontier at ``depth`` intact: ``target_max_depth`` bounds each block's
+    level budget, and the loop stops before the next dispatch's entry check
+    would retire the frontier."""
     c = model.checker().target_max_depth(depth).spawn_xla(**kw)
     while c._depth < depth and not c.is_done():
         c._run_block()
-    require(c._depth == depth and c._frontier_count > 0, f"stopped at depth {c._depth}")
+    require(c._depth == depth and c.metrics()["frontier_count"] > 0, f"stopped at depth {c._depth}")
     return c
 
 
@@ -3286,6 +3306,322 @@ def mux_phase() -> dict:
     return launches
 
 
+#: The capacities of the rm=5 run held bitwise against its CPU twin
+#: (``tests/test_sharded.py``'s rm=5 case): small enough for the CPU.
+SHARD_RM5_CAPS = dict(frontier_capacity=1 << 12, table_capacity=1 << 16)
+
+
+def keys_in_owners(c) -> list:
+    """Each shard's occupied keys, every one of which must be owned by its
+    shard (``parallel.owner_bits``); returns the keys a shard."""
+    out = []
+    for d, t in enumerate(c._tables):
+        kh, kl = t.key_hi, t.key_lo
+        occ = (kh != 0) | (kl != 0)
+        require(bool((owner_bits(kh[occ], kl[occ], c._D) == d).all()),
+                f"shard {d} holds a key another shard owns")
+        out.append(int(occ.sum()))
+    return out
+
+
+def shard_line(c, wall: float, launches: dict, what: str, expected=None,
+               properties: bool = True) -> dict:
+    """A sharded run's line: the pins (``expected`` generated and unique),
+    every discovery re-executed (and, with ``properties``, every property
+    as expected), a clean audit, each key in its owner shard and the
+    shards' occupancy (max over mean), dispatches, captures, growths by
+    kind, the shapes a shard."""
+    m = c.metrics()
+    if expected is not None:
+        require((c.state_count(), c.unique_state_count()) == tuple(expected[:2]),
+                f"{what}: counts {(c.state_count(), c.unique_state_count())}")
+    require(all(n > 0 for n in launches.values()), f"{what}: kernel launches {launches}")
+    if properties:
+        c.assert_properties()
+    for name, path in c.discoveries().items():
+        c.assert_discovery(name, path.into_actions())
+    keys = keys_in_owners(c)
+    return {
+        "shards": c._D, "dedup": m["dedup"], "wall_s": wall, "generated": c.state_count(),
+        "unique": c.unique_state_count(), "max_depth": c.max_depth(),
+        "dispatches": m["dispatches"], "levels": m["levels_committed"],
+        "dispatch_log": c.dispatch_log, "launches": launches,
+        "graph_captures": m["graph_captures"], "capture_s": m["graph_capture_s"],
+        "grows": {k: m[k] for k in ("table_grows", "frontier_grows", "route_grows")},
+        "delta_flushes": m["delta_flushes"],
+        "rows_per_shard": m["frontier_rows_per_shard"], "slots_per_shard": m["table_slots_per_shard"],
+        "route_slots": m["route_slots"], "keys_per_shard": keys,
+        "occupancy_max_over_mean": max(keys) / (sum(keys) / len(keys)),
+        "audit": audited(c, what),
+    }
+
+
+def shard_levels(c) -> list:
+    return [(r["depth"], r["frontier"], r["generated"], r["unique"]) for r in c.level_log]
+
+
+def shard_kernel_inputs(model, depth: int, dedup: str):
+    """The kernels' inputs of one level of the sharded engine at D = 8: the
+    search of ``model`` (which ran it before, so no graph is captured) to
+    ``depth``, then that level run once eagerly with the calls recorded:
+    every ``compact`` (each shard's grid, route and frontier compaction)
+    and every ``merge_insert`` of the sorted set's insert, or under the
+    hash set every shard's insert with the table as it was before it."""
+    c = run_to_depth(model, depth, mesh=default_mesh(8), dedup=dedup)
+    c._target_max_depth = None
+    c._levels_per_dispatch = 1
+    calls = {"compact": [], "merge_insert": [], "hash": []}
+    real_compact, real_merge, real_insert = sharded_mod.compact, sortedset.merge_insert, c._insert
+
+    def spy_compact(mask, lanes, cap):
+        out = real_compact(mask, lanes, cap)
+        calls["compact"].append((mask, list(lanes), cap, int(out[1])))
+        return out
+
+    def spy_merge(table, batch):
+        calls["merge_insert"].append((table.clone(), batch.clone()))
+        return real_merge(table, batch)
+
+    def spy_insert(table, *lanes, in_place=False):
+        if dedup == "hash":
+            calls["hash"].append((hashset.HashSet(table.slots.clone()), [x.clone() for x in lanes]))
+        return real_insert(table, *lanes, in_place=in_place)
+
+    sharded_mod.compact, sortedset.merge_insert, c._insert = spy_compact, spy_merge, spy_insert
+    try:
+        c._run_block()
+    finally:
+        sharded_mod.compact, sortedset.merge_insert = real_compact, real_merge
+    require(c._depth == depth + 1 and c.dispatch_log[-1][1] == 1, "shard kernels: the level")
+    return c, calls
+
+
+def without_ops(line: dict) -> dict:
+    return {k: v for k, v in line.items() if k != "device_ops"}
+
+
+def shard_kernel_phase(model, hash_model, depth: int) -> dict:
+    """The kernels against their plain versions at the shapes the sharded
+    main path gives them (``shard_kernels``): every call of the widest
+    level of rm=8 at D = 8 (by its level-log unique count) held exactly
+    against the plain version, and the widest shard's call of each kind
+    (grid, route and frontier compaction; the sorted set's merge; the hash
+    insert and undo) checked 5 more times and timed."""
+    c, calls = shard_kernel_inputs(model, depth, "sorted")
+    D, Fl, A, W, K = c._D, c._Fl, c._A, c._W, c._K
+    lanes_n = W + 5
+    kinds = {"grid": (Fl, A), "route": (D, Fl * A), "frontier": (D, K)}
+    # Bytes a survivor's words and a level's per-state lanes cost each kind.
+    reads = {"grid": (W, 3 * Fl * 8), "route": (lanes_n, 0), "frontier": (W + 1, 0)}
+    out = {"compact": {}, "merge_insert": {}}
+    for kind, shape in kinds.items():
+        mine = [x for x in calls["compact"] if tuple(x[0].shape) == shape]
+        require(len(mine) == D, f"shard kernels: {len(mine)} {kind} compactions")
+        checks = [check_compact(f"shard_{kind}_{d}", m, l, cap) for d, (m, l, cap, _) in enumerate(mine)]
+        mask, lanes, cap, n = max(mine, key=lambda x: x[3])
+        check_compact(f"shard_{kind}_widest", mask, lanes, cap, reps=5)
+        out["compact"][kind] = {"shape": list(shape), "P": len(lanes), "cap": cap, "n_valid": n,
+                                "n_valid_by_shard": [x[3] for x in mine],
+                                "max_abs_err": max(x["max_abs_err"] for x in checks),
+                                **time_compact(mask, lanes, cap, n, *reads[kind])}
+    merges = calls["merge_insert"]
+    require(len(merges) == D, f"shard kernels: {len(merges)} merges")
+    checks = [check_merge(f"shard_merge_{d}", t, b) for d, (t, b) in enumerate(merges)]
+    table, batch = max(merges, key=lambda x: int((fold_key(x[1][0], x[1][1]) != PAD_KEY).sum()))
+    n = check_merge("shard_merge_widest", table, batch, reps=5)["n_keep"]
+    out["merge_insert"] = {"C": table.shape[1], "m": batch.shape[1], "n_keep": n,
+                           "max_abs_err": max(x["max_abs_err"] for x in checks),
+                           **merge_timing(table, batch, n)}
+    del c, calls, merges, table, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    h, hcalls = shard_kernel_inputs(hash_model, depth, "hash")
+    require(len(hcalls["hash"]) == h._D, "shard kernels: hash inserts")
+    checks = [check_hash(f"shard_hash_{d}", t, lanes) for d, (t, lanes) in enumerate(hcalls["hash"])]
+    t, lanes = max(hcalls["hash"], key=lambda x: int(x[1][4].sum()))
+    timing = hash_timing(t, lanes, h._max_probes, plain=True)
+    err = max(x["max_abs_err"] for x in checks)
+    out["hashset_insert"] = {**checks[0], "max_abs_err": err, "active_by_shard":
+                             [int(x[1][4].sum()) for x in hcalls["hash"]], **timing["insert"]}
+    out["hashset_undo"] = {"max_abs_err": err, **timing["undo"]}
+    del h, hcalls, t, lanes
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "shard_kernels", "depth": depth, **{
+        k: {kind: without_ops(line) for kind, line in v.items()} if k == "compact"
+        else without_ops(v) for k, v in out.items()}})
+    return out
+
+
+def sharded_phase(main_levels: list, main_depth: int):
+    """The sharded engine (``spawn_xla(mesh=default_mesh(D))``, D shards on
+    this card): 2pc rm=8 at D = 2, 4 and 8 under the sorted set, each
+    exact at the single-chip engine's levels and depth (``main_levels``,
+    ``main_depth``), every discovery re-executed, a clean audit, each key
+    in its owner shard, cold and warm on one model instance (the warm run
+    capturing nothing) beside the single-chip warm wall on the same
+    instance (solo, D = 8 and D = 4 checks and a repeat of each) and one
+    more warm D = 8 run profiled; ``default_mesh()``, one shard a card, on
+    the single-chip engine; rm=8 at D = 8 under the hash set and at D = 4
+    under the delta set (with flushes); rm=5 at D = 8 bitwise equal to its
+    CPU twin; Paxos 2c/3s at D = 4 and single-copy-register 2c/2s through
+    the host-verified path at D = 8, equal to the single-chip engine; rm=8
+    under symmetry at D = 8;
+    an rm=8 checkpoint at D = 8 saved mid-run and resumed on the
+    single-chip engine and at D = 4, and a single-chip file resumed at
+    D = 8; then ``shard_kernels``. Returns the launches by path and the
+    kernels' lines."""
+    launches, out = {}, {}
+    expected = EXPECTED_2PC[8]
+    # The default mesh is one shard a card: the single-chip engine.
+    require(type(PackedTwoPhaseSys(3).checker().spawn_xla(mesh=default_mesh())) is XlaChecker,
+            "default_mesh() on one card")
+
+    def exact(c, what):
+        require(shard_levels(c) == main_levels and c.max_depth() == main_depth,
+                f"{what}: levels differ from the single-chip engine's")
+
+    # One instance: solo, D = 8, D = 4, then a repeat of each.
+    model = PackedTwoPhaseSys(8)
+    walls, lines = {}, {}
+    for run in ("cold", "warm"):
+        for shards in (1, 8, 4):
+            kw = {} if shards == 1 else {"mesh": default_mesh(shards)}
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            c, wall, got = drive(model, **kw)
+            peak = torch.cuda.max_memory_allocated()
+            tag = f"sharded_rm8_{'solo' if shards == 1 else f'd{shards}'}_{run}"
+            launches[tag] = got
+            walls[tag] = wall
+            if shards == 1:
+                require((c.state_count(), c.unique_state_count()) == expected, f"{tag}: counts")
+                require(run == "cold" or c.metrics()["graph_captures"] == 0, f"{tag}: captured")
+                continue
+            exact(c, tag)
+            lines[tag] = {**shard_line(c, wall, got, tag, expected), "peak_mem_gib": peak / 2**30,
+                          "peak_above_base_gib": (peak - base) / 2**30}
+            if run == "warm":
+                require(lines[tag]["graph_captures"] == 0, f"{tag}: the warm run captured")
+            emit({"phase": tag, **lines[tag], "solo_warm_wall_s": walls.get("sharded_rm8_solo_warm")})
+    # One more warm D = 8 run under the profiler: device time by kernel and
+    # the device's idle share.
+    c, wall, kernels = profiled(lambda: model.checker().spawn_xla(mesh=default_mesh(8)).join())
+    require((c.state_count(), c.unique_state_count()) == expected
+            and c.metrics()["graph_captures"] == 0, "profiled D = 8: counts or a capture")
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    emit({"phase": "sharded_rm8_d8_profile", "wall_s": wall, "busy_ms": busy_ms,
+          "idle_share": 1 - busy_ms / 1e3 / wall,
+          "device_ops_per_level": sum(n for _, _, n in kernels) / len(c.level_log),
+          "top": sorted(kernels, key=lambda k: -k[1])[:12]})
+    out["rm8"] = {k: {x: v[x] for x in ("wall_s", "graph_captures", "peak_mem_gib")}
+                  for k, v in lines.items()}
+    out["rm8"]["solo_walls_s"] = {k: v for k, v in walls.items() if "solo" in k}
+    widest = max(range(len(main_levels)), key=lambda i: main_levels[i][3])
+    # D = 2 on an instance of its own, cold and warm.
+    two = PackedTwoPhaseSys(8)
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        c, wall, got = drive(two, mesh=default_mesh(2))
+        tag = f"sharded_rm8_d2_{run}"
+        launches[tag] = got
+        exact(c, tag)
+        line = {**shard_line(c, wall, got, tag, expected),
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        require(run == "cold" or line["graph_captures"] == 0, f"{tag}: the warm run captured")
+        out["rm8"][tag] = {x: line[x] for x in ("wall_s", "graph_captures", "peak_mem_gib")}
+        emit({"phase": tag, **line})
+    del two, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The hash set at D = 8 and the delta set at D = 4, each on its own instance.
+    hash_model = PackedTwoPhaseSys(8)
+    for tag, m, shards, dedup in (("sharded_rm8_d8_hash", hash_model, 8, "hash"),
+                                  ("sharded_rm8_d4_delta", PackedTwoPhaseSys(8), 4, "delta")):
+        torch.cuda.reset_peak_memory_stats()
+        c, wall, got = drive(m, mesh=default_mesh(shards), dedup=dedup)
+        launches[tag] = got
+        exact(c, tag)
+        line = {**shard_line(c, wall, got, tag, expected),
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        require(dedup != "delta" or line["delta_flushes"] > 0, f"{tag}: no flush")
+        out[tag] = {x: line[x] for x in ("wall_s", "graph_captures", "peak_mem_gib", "delta_flushes")}
+        emit({"phase": tag, **line})
+        del c
+    gc.collect()
+    torch.cuda.empty_cache()
+    # rm=5 at D = 8 on the card and on the CPU: bit for bit.
+    card, wall, got = drive(PackedTwoPhaseSys(5), mesh=default_mesh(8), **SHARD_RM5_CAPS)
+    launches["sharded_rm5_d8"] = got
+    t0 = time.perf_counter()
+    cpu = PackedTwoPhaseSys(5).checker().spawn_xla(mesh=default_mesh(8, device="cpu"),
+                                                   **SHARD_RM5_CAPS).join()
+    cpu_wall = time.perf_counter() - t0
+    require((card.state_count(), card.unique_state_count(), card.dispatch_log, card._found_names,
+             shard_levels(card)) == (cpu.state_count(), cpu.unique_state_count(), cpu.dispatch_log,
+                                     cpu._found_names, shard_levels(cpu)), "rm=5 card vs CPU")
+    require(all(np.array_equal(to_u32(a[i]), to_u32(b[i])) for a, b in zip(card._tables, cpu._tables)
+                for i in range(4)), "rm=5 card vs CPU: shard planes")
+    out["rm5_d8"] = {**shard_line(card, wall, got, "sharded rm=5", EXPECTED_2PC[5]),
+                     "cpu_wall_s": cpu_wall, "planes_equal": True}
+    emit({"phase": "sharded_rm5_d8", **out["rm5_d8"]})
+    # Paxos 2c/3s at D = 4; single-copy-register through the host-verified path at D = 8.
+    solo = PackedPaxos(2, 3).checker().spawn_xla().join()
+    c, wall, got = drive(PackedPaxos(2, 3), mesh=default_mesh(4), frontier_capacity=1 << 12)
+    launches["sharded_paxos2_d4"] = got
+    require(set(c.discoveries()) == set(solo.discoveries()), "sharded paxos: discoveries")
+    out["paxos2_d4"] = shard_line(c, wall, got, "sharded paxos", EXPECTED_PAXOS2)
+    emit({"phase": "sharded_paxos2_d4", **out["paxos2_d4"]})
+    hv_model = lambda: PackedSingleCopyRegister(2, 2, device_exact=False)  # noqa: E731
+    solo = hv_model().checker().spawn_xla().join()
+    c, wall, got = drive(hv_model(), mesh=default_mesh(8))
+    launches["sharded_hv_scr2_d8"] = got
+    require((c.state_count(), c.unique_state_count(), set(c.discoveries())) == (
+        solo.state_count(), solo.unique_state_count(), set(solo.discoveries())), "sharded hv")
+    require("linearizable" in c.discoveries(), "sharded hv: the counterexample")
+    out["hv_scr2_d8"] = {**shard_line(c, wall, got, "sharded hv", properties=False),
+                         "hv": c.hv_stats}
+    emit({"phase": "sharded_hv_scr2_d8", **out["hv_scr2_d8"]})
+    # rm=8 under symmetry at D = 8, equal to the single-chip symmetric run.
+    solo = PackedTwoPhaseSys(8).checker().symmetry().spawn_xla().join()
+    c, wall, got = drive(PackedTwoPhaseSys(8), sym=True, mesh=default_mesh(8))
+    launches["sharded_sym_rm8_d8"] = got
+    require((c.state_count(), c.unique_state_count(), c.max_depth()) == EXPECTED_2PC_SYM[8]
+            == (solo.state_count(), solo.unique_state_count(), solo.max_depth()), "sharded sym")
+    out["sym_rm8_d8"] = shard_line(c, wall, got, "sharded sym rm=8", EXPECTED_2PC_SYM[8])
+    emit({"phase": "sharded_sym_rm8_d8", **out["sym_rm8_d8"]})
+    del c, solo
+    # Checkpoints crossing D = 8, the single-chip engine and D = 4.
+    depth = main_levels[widest][0]
+    zero_launches()
+    ck = {}
+    paths = {k: os.path.join(CKPT_DIR, f"shard_{k}.npz") for k in ("d8", "solo")}
+    t0 = time.perf_counter()
+    run_to_depth(model, depth, mesh=default_mesh(8)).save_checkpoint(paths["d8"])
+    run_to_depth(model, depth).save_checkpoint(paths["solo"])
+    ck["save_s"] = time.perf_counter() - t0
+    for name, path, kw in (("d8_to_solo", paths["d8"], {}),
+                           ("d8_to_d4", paths["d8"], {"mesh": default_mesh(4)}),
+                           ("solo_to_d8", paths["solo"], {"mesh": default_mesh(8)})):
+        t0 = time.perf_counter()
+        r = model.checker().spawn_xla(checkpoint=path, **kw).join()
+        require((r.state_count(), r.unique_state_count()) == expected, f"checkpoint {name}")
+        check_paths(r)
+        audited(r, f"checkpoint {name}")
+        ck[name] = {"resumed_s": time.perf_counter() - t0, "captures": r.metrics()["graph_captures"]}
+    launches["sharded_checkpoint_rm8"] = launches_now()
+    ck["file_bytes"] = os.path.getsize(paths["d8"])
+    out["checkpoint_rm8"] = ck
+    emit({"phase": "sharded_checkpoint_rm8", "depth": depth, **ck})
+    kernels = shard_kernel_phase(model, hash_model, depth)
+    del model, hash_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "sharded", **{k: v for k, v in out.items()
+                                  if k not in ("rm5_d8", "paxos2_d4", "hv_scr2_d8", "sym_rm8_d8")}})
+    return launches, kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3336,6 +3672,9 @@ def run_phases() -> int:
     explorer_launches, ck = explorer_phase(np.random.default_rng(2026))
     new_paths.update(explorer_launches)
     new_paths.update(mux_phase())
+    main_levels = [(r["depth"], r["frontier"], r["generated"], r["unique"]) for r in checker.level_log]
+    shard_launches, shk = sharded_phase(main_levels, checker.max_depth())
+    new_paths.update(shard_launches)
     rng = np.random.default_rng(2024)
     b1 = compact_phase(checker, rng)
     m_main = max(r["cand_cap"] for r in checker.level_log)
@@ -3358,7 +3697,9 @@ def run_phases() -> int:
         errs = [main, px[name], ak[name], sk[name], *new_shapes.values(), dk["level"][name],
                 ck[name]]
         if name == "compact":
-            errs.append(ck[name]["frontier"])
+            errs += [ck[name]["frontier"], *shk[name].values()]
+        else:
+            errs.append(shk[name])
         if name == "merge_insert":
             errs.append(dk["flush"])
         kernels.append({
@@ -3368,6 +3709,8 @@ def run_phases() -> int:
             "max_abs_err": max(e["max_abs_err"] for e in errs),
             "paxos3": px[name], "ladder_and_hv_shapes": new_shapes, "abd3": ak[name],
             "sym14": sk[name], "delta9": delta, "click": ck[name],
+            "sharded": without_ops(shk[name]) if name == "merge_insert" else {
+                kind: without_ops(line) for kind, line in shk[name].items()},
         })
     notes = {
         "hashset_insert": "insert, jitted JAX (a while_loop of scatter-min rounds); no pallas_call",
@@ -3380,8 +3723,9 @@ def run_phases() -> int:
             "replaces": "stateright_tpu/ops/hashset.py:50", "replaces_note": notes[name],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **{k: v for k, v in line.items() if k != "device_ops"},
-            "click": {k: v for k, v in ck[name].items() if k != "device_ops"},
-            "max_abs_err": max(line["max_abs_err"], ck[name]["max_abs_err"]),
+            "click": without_ops(ck[name]), "sharded": without_ops(shk[name]),
+            "max_abs_err": max(line["max_abs_err"], ck[name]["max_abs_err"],
+                               shk[name]["max_abs_err"]),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

@@ -91,10 +91,24 @@ class CheckerBuilder:
 
         return serve(self, addresses, engine=engine, **spawn_kwargs)
 
-    def spawn_xla(self, **kwargs) -> Checker:
+    def spawn_xla(self, *, mesh=None, **kwargs) -> Checker:
         """Level-synchronous BFS with the whole frontier expanded per step
-        on the device (``stateright_tpu_torch.xla.XlaChecker``). Keyword
-        arguments go to it: ``device`` (CUDA unless ``"cpu"``),
+        on the device (``stateright_tpu_torch.xla.XlaChecker``).
+
+        With ``mesh`` (``stateright_tpu_torch.parallel.default_mesh(D)``: D
+        shards on one device) of more than one shard, the frontier and the
+        visited set shard by fingerprint ownership and each level routes
+        every candidate to its owner (``parallel.ShardedXlaChecker``). It
+        takes ``frontier_capacity``, ``table_capacity`` (over all shards),
+        ``route_capacity`` (slots a source and destination shard; by
+        default four times a shard's grid over D), ``levels_per_dispatch``,
+        ``dedup``, ``max_probes``, ``symmetry``, ``host_verified_cap``,
+        ``visit_cap``, the checkpoint and the observability keywords below;
+        the single-chip tuning knobs do not apply there. A ``device`` must
+        be the mesh's. A one-shard mesh runs the single-chip engine on the
+        mesh's device (``route_capacity`` ignored).
+
+        Keyword arguments go to ``XlaChecker``: ``device`` (CUDA unless ``"cpu"``),
         ``frontier_capacity``, ``table_capacity``, ``levels_per_dispatch``
         (32; a visitor forces 1), ``shrink_exit`` ("auto"), ``cand_ladder``
         ("auto" = 3 rungs, or 1..3), ``host_verified_cap`` (128 candidate
@@ -131,6 +145,19 @@ class CheckerBuilder:
         ``readback`` sub-spans and a ``checker.phase_log`` row)."""
         from ..xla import XlaChecker
 
+        if mesh is not None:
+            import torch
+
+            from ..parallel import ShardedXlaChecker, mesh_device
+
+            dev = mesh_device(mesh)
+            want = kwargs.pop("device", None)
+            if want is not None and torch.device(want) not in (dev, torch.device(dev.type, 0)):
+                raise ValueError(f"device={want!r} is not the mesh's device {dev}")
+            if mesh.devices.size > 1:
+                return ShardedXlaChecker(self, mesh, **kwargs)
+            kwargs["device"] = dev
+        kwargs.pop("route_capacity", None)  # the sharded engine's knob
         return XlaChecker(self, **kwargs)
 
     # --- configuration ----------------------------------------------------

@@ -101,14 +101,29 @@ def _payload_digest(arrays: Dict[str, np.ndarray]) -> str:
 def checkpoint_arrays(checker) -> Dict[str, np.ndarray]:
     """The payload of ``checker``'s current search state as ``uint32``
     arrays: the visited set's occupied rows in its plane order (the
-    structure's ``occupied_rows``) and the live frontier rows with their
-    eventually-bits."""
-    rows = checker._ds.occupied_rows(checker._table)
-    return {
-        **dict(zip(PAYLOAD_KEYS[:4], rows)),
-        "frontier": checker._frontier_rows_host(),
-        "frontier_ebits": to_u32(checker._frontier_ebits[: checker._frontier_count]),
-    }
+    structure's ``occupied_rows``; on the sharded engine every shard's,
+    shard by shard, as the reference's global planes lie) and the live
+    frontier rows with their eventually-bits (:func:`_live_frontier`)."""
+    from .parallel import ShardedXlaChecker
+
+    if isinstance(checker, ShardedXlaChecker):
+        rows = checker._occupied_rows()
+    else:
+        rows = checker._ds.occupied_rows(checker._table)
+    frontier, ebits = _live_frontier(checker)
+    return {**dict(zip(PAYLOAD_KEYS[:4], rows)), "frontier": frontier, "frontier_ebits": ebits}
+
+
+def _live_frontier(checker):
+    """The live frontier rows ``[n, W]`` and eventually-bits ``[n]`` as host
+    ``uint32``, whatever the engine's layout: the sharded engine's shard by
+    shard."""
+    from .parallel import ShardedXlaChecker
+
+    if isinstance(checker, ShardedXlaChecker):
+        return checker._live_frontier()
+    return (checker._frontier_rows_host(),
+            to_u32(checker._frontier_ebits[: checker._frontier_count]))
 
 
 def save_checkpoint(checker, path: str, keep: int = 1) -> None:

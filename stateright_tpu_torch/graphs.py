@@ -43,7 +43,11 @@ The multiplexed engine (``xla_mux.py``) keeps its own entries in the same
 cache: a :class:`MuxCarry` (one carry a lane and the mux's block scalars)
 per lane count and shape, and one program per :func:`mux_key`, whose graph
 holds every lane's gated level; a table growth drops them with the solo
-programs of the old capacity.
+programs of the old capacity. The sharded engine (``parallel/sharded.py``)
+keeps a :class:`ShardCarry` (every shard's buffers, the shard axis first)
+per :func:`shard_shape` and one program per :func:`shard_key`, whose graph
+holds every shard's level; a growth of its table or frontier drops the
+carry of the old shape and every program on it (:meth:`ProgramCache.drop_shard`).
 
 Graph replays run no Python, so the kernels' launch counters would stop
 counting: each program records how many launches of each kernel its graph
@@ -171,6 +175,40 @@ class MuxCarry:
             c.frontier(run_cap)
 
 
+class ShardCarry:
+    """The static buffers of the sharded level (``parallel/sharded.py``) of
+    ``shards`` fingerprint-owned shards on one device, the shard axis
+    first: each shard's ``[rows, W]`` frontier, its eventually-bits and its
+    count; each visited-set plane of the ``dedup`` structure stacked over
+    the shards (``table[j][d]`` is shard d's plane j) and their counts
+    ``table_n`` ``[shards, 2]`` (:data:`COUNT_SLOTS`' order); the
+    discoveries; each shard's block of host-verified candidates
+    (``[n_hv, shards, hv_cap, ...]``, the counts ``[n_hv, shards]``); the
+    block scalars ``s`` in the :data:`SLOTS` layout, whose ``cc_ovf`` slot
+    holds the route overflow (the mesh has no candidate buffer that
+    overflows) and whose ``f_count`` is the total over the shards; and
+    the per-level telemetry ``lvl`` (total frontier, generated, unique)."""
+
+    def __init__(self, device, shards: int, rows: int, words: int, n_props: int, levels: int,
+                 table_capacity: int, n_hv: int = 0, hv_cap: int = 0, dedup: str = "sorted"):
+        z = dict(dtype=DTYPE, device=device)
+        self.s = torch.zeros(len(SLOTS), **z)
+        self.counts = torch.zeros(shards, **z)
+        self.frontier = torch.zeros((shards, rows, words), **z)
+        self.ebits = torch.zeros((shards, rows), **z)
+        empty = STRUCTURES[dedup].make(table_capacity, device)
+        self.table = [p.expand(shards, *p.shape).clone() for p in empty[:empty.PLANES]]
+        self.table_n = torch.zeros((shards, len(COUNT_SLOTS)), **z)
+        self.disc_found = torch.zeros(n_props, dtype=torch.bool, device=device)
+        self.disc_fp = torch.zeros((n_props, 2), **z)
+        self.host_found = torch.zeros(n_props, dtype=torch.bool, device=device)
+        self.lvl = torch.zeros((3, levels), **z)
+        self.slots = torch.arange(levels, device=device)
+        self.hv_w = torch.zeros((n_hv, shards, hv_cap, words), **z)
+        self.hv_f = torch.zeros((n_hv, shards, hv_cap, 2), **z)
+        self.hv_c = torch.zeros((n_hv, shards), **z)
+
+
 class Program:
     """One shape key's level: a captured graph, or None to run eagerly."""
 
@@ -236,6 +274,10 @@ class ProgramCache:
         #: Program.
         self.mux_carries: Dict[Tuple, MuxCarry] = {}
         self.mux_programs: Dict[Tuple, Program] = {}
+        #: The sharded engine's (``parallel/sharded.py``): :func:`shard_shape`
+        #: -> ShardCarry, and :func:`shard_key` -> Program.
+        self.shard_carries: Dict[Tuple, ShardCarry] = {}
+        self.shard_programs: Dict[Tuple, Program] = {}
 
     def carry(self, words: int, n_props: int, table_capacity: int, levels: int,
               n_hv: int = 0, hv_cap: int = 0, dedup: str = "sorted") -> Carry:
@@ -265,6 +307,44 @@ class ProgramCache:
             prog = Program(carry)
         self.mux_programs[key] = prog
         return prog
+
+    def shard_carry(self, key: Tuple, words: int, n_props: int, n_hv: int) -> ShardCarry:
+        """The carry of the sharded program ``key`` (:func:`shard_key`)."""
+        shape = shard_shape(key)
+        if shape not in self.shard_carries:
+            _, shards, rows, table_capacity, levels, hv_cap, dedup = shape
+            self.shard_carries[shape] = ShardCarry(self.device, shards, rows, words, n_props,
+                                                   levels, table_capacity, n_hv, hv_cap, dedup)
+        return self.shard_carries[shape]
+
+    def make_shard(self, key, carry: ShardCarry, body: Callable[[], None], graph: bool) -> Program:
+        """The sharded program of ``key``; with ``graph``, ``body`` is
+        captured after the carry's budget is zeroed, so that the warm-up
+        level is dead on every shard."""
+        if graph:
+            carry.s[S["budget"]] = 0
+            prog = Program(carry, *capture(body, self.pool, self.side))
+        else:
+            prog = Program(carry)
+        self.shard_programs[key] = prog
+        return prog
+
+    def drop_shard(self, shape: Tuple) -> None:
+        """Forget the sharded carry of ``shape`` (:func:`shard_shape`) and
+        every program on it, of every route width, probe budget and
+        symmetry tag, and hand their memory back as :meth:`drop` does."""
+        for key in [k for k in self.shard_programs if shard_shape(k) == shape]:
+            del self.shard_programs[key]
+        self.shard_carries.pop(shape, None)
+        self._release()
+
+    def _release(self) -> None:
+        """On a card: hand the memory of dropped graphs and carries back,
+        and send later captures to a new pool."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            self.pool = torch.cuda.graph_pool_handle()
 
     def make(self, key, carry: Carry, body: Callable[[], None], graph: bool) -> Program:
         """The program of ``key``; with ``graph``, ``body`` is captured, after
@@ -298,10 +378,7 @@ class ProgramCache:
                 del self.mux_programs[key]
             for key in [k for k in self.mux_carries if k[1:] == (table_capacity, levels, dedup)]:
                 del self.mux_carries[key]
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            torch.cuda.empty_cache()
-            self.pool = torch.cuda.graph_pool_handle()
+        self._release()
 
 
 def mux_key(k: int, run_cap: int, cand_cap: int, levels: int, sym_tag, max_probes: int,
@@ -315,6 +392,22 @@ def mux_shape(key: Tuple) -> Tuple[int, int, int, str]:
     """The carry shape ``(table_capacity, levels_per_dispatch, hv_cap,
     dedup)`` of a :func:`mux_key`, as :meth:`ProgramCache.drop` takes it."""
     return (key[8], key[4], 0, key[7])
+
+
+def shard_key(shards: int, rows: int, table_capacity: int, route: int, levels: int,
+              hv_cap: int, dedup: str, max_probes: int, sym_tag) -> Tuple:
+    """The key of a sharded program: ``shards`` shards' levels at ``rows``
+    frontier rows and ``table_capacity`` table slots a shard, ``route``
+    slots a (source, destination) pair, under the checker's structure,
+    probe budget and symmetry tag."""
+    return ("shard", shards, rows, table_capacity, route, levels, hv_cap, dedup, max_probes,
+            sym_tag)
+
+
+def shard_shape(key: Tuple) -> Tuple:
+    """The carry shape ``("shard", shards, rows, table_capacity, levels,
+    hv_cap, dedup)`` of a :func:`shard_key`."""
+    return key[:4] + key[5:8]
 
 
 def graph_inputs(model) -> dict:
