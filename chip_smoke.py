@@ -121,7 +121,21 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    the kernels' launch counters printed at exit: ``two_phase_commit check
    8``, ``paxos check 2``, ``single_copy_register check 3`` and
    ``linearizable_register check 2 ordered``, each exiting 0 with its
-   pinned ``Done.`` counts, its wall from process start printed; and
+   pinned ``Done.`` counts, its wall from process start printed; the
+   checker service (``service``, right after ``cli``), whose pools run in
+   processes of their own (``SERVICE_BOOT``) and must leave CUDA
+   uninitialised there: ``2pc:8`` and ``paxos:2,3`` jobs exact through the
+   admission check, a ``2pc:8`` job SIGKILLed at depth 14 and resumed from
+   its rotation, a ``2pc:8`` job frozen mid-dispatch beside a running
+   sibling (the wedge verdict within the leash, the victim resumed, the
+   sibling untouched), four ``2pc:5`` jobs as one ``--mux`` worker, two
+   wedges opening the breaker, a ``2pc:4`` job on the host (``degraded``),
+   the default probe closing it and the next job on the card, a pool
+   SIGKILLed mid-job and restarted over its run dir (the orphaned worker
+   killed, the job finished once), and ``make_app(PackedTwoPhaseSys(8)
+   .checker(), service=pool)`` in this process; each job's wall from
+   submit, its worker's seconds to its first dispatch, captures, peak
+   memory and launches printed, every discovery re-executed; and
    observability (``obs``): rm=8 cold on a fresh model instance, then warm
    with everything off, on (a span trace, a heartbeat, a metrics series
    every level, the phase split), off and on, each wall printed, the off
@@ -164,7 +178,8 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    against its plain version, the widest shard's timed;
 15. prints the ``{"kernels": [...]}`` line (launches summed over every
    main-path run: rm=8, Paxos 3c/3s, single-copy-register, the
-   host-verified runs and the paths of items 9 to 14, each also by path)
+   host-verified runs and the paths of items 9 to 14, the service's from
+   its workers' ``--out`` files, each also by path)
    and, last, the device line.
 
 Every line but the nvidia-smi one is a JSON object. Any failed check
@@ -175,6 +190,7 @@ from __future__ import annotations
 
 import collections
 import gc
+import glob
 import json
 import multiprocessing
 import os
@@ -213,7 +229,7 @@ from stateright_tpu_torch.models.single_copy_register import (
     PackedSingleCopyRegister,
     PackedSingleCopyRegisterOrdered,
 )
-from stateright_tpu_torch.core import Property
+from stateright_tpu_torch.core import Expectation, Property
 from stateright_tpu_torch.models.two_phase_commit import PackedTwoPhaseSys, TwoPhaseSys
 from stateright_tpu_torch.obs import heartbeat, promexport
 from stateright_tpu_torch.ops import _cuda, deltaset, hashset, sortedset
@@ -225,6 +241,8 @@ from stateright_tpu_torch.parallel import sharded as sharded_mod
 from stateright_tpu_torch.sym import canonicalize_host, compile_canon
 from stateright_tpu_torch.xla import XlaChecker
 from stateright_tpu_torch.xla_mux import MuxChecker
+from stateright_tpu_torch.service import CheckerService, ServiceConfig
+from stateright_tpu_torch.service.registry import resolve as resolve_spec
 
 #: H100 SXM device-memory rate, bytes per second (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -1716,6 +1734,426 @@ def cli_phase() -> dict:
                        "generated": counts[0], "unique": counts[1], "max_depth": counts[2],
                        "launches": ran}
     emit({"phase": "cli", "commands": lines})
+    return launches
+
+
+#: The ``service`` phase's configuration on the card: the specs of its
+#: items and their pins, the depths of its faults and the pools' leashes.
+SERVICE_CARD = {
+    "platform": "default",
+    "big": "2pc:8", "big_pins": EXPECTED_2PC[8],
+    "paxos": "paxos:2,3", "paxos_pins": EXPECTED_PAXOS2,
+    "small": "2pc:5", "small_pins": EXPECTED_2PC[5],
+    "tiny": "2pc:4", "tiny_pins": EXPECTED_2PC[4],
+    "die_depth": 14, "freeze_depth": 14, "tiny_freeze_depth": 3,
+    "stall_s": 15.0, "breaker_stall_s": 6.0, "poll_s": 0.5,
+}
+#: ``python -c SERVICE_BOOT <mode> <config JSON>``: a checker-service pool
+#: in a process of its own, which imports ``stateright_tpu_torch.service``
+#: and nothing that launches a kernel. ``batch`` runs the phase's items 1-5
+#: (exact jobs, kill and resume, wedge isolation, mux, the breaker),
+#: ``restart-a`` starts a job and waits (the phase SIGKILLs it) and
+#: ``restart-b`` restarts a pool over the same run dir. One JSON line an
+#: item on stdout; any failed check prints ``service_error`` and exits 1.
+SERVICE_BOOT = r"""
+import json, os, re, sys, time
+mode, cfg = sys.argv[1], json.loads(sys.argv[2])
+from stateright_tpu_torch.service import CheckerService, ServiceConfig, read_journal
+
+T0 = time.time()
+DEVICE = cfg["platform"] != "cpu"
+
+
+def out(obj):
+    print(json.dumps(obj, default=str), flush=True)
+
+
+def need(ok, what):
+    if not ok:
+        out({"service_error": what})
+        sys.exit(1)
+
+
+def pool(name, **kw):
+    base = dict(run_dir=os.path.join(cfg["run_dir"], name), platform=cfg["platform"],
+                stall_s=cfg["stall_s"], startup_grace_s=300.0, poll_s=cfg["poll_s"],
+                backoff_s=0.5, probe_auto=False, admission_lint=False,
+                default_max_seconds=900.0)
+    base.update(kw)
+    return CheckerService(ServiceConfig(**base))
+
+
+def line(job):
+    r = job.result or {}
+    m = r.get("metrics") or {}
+    return {
+        "id": job.id, "spec": job.spec, "status": job.status, "error": job.error,
+        "engine": job.engine, "degraded": job.degraded,
+        "wall_s": (job.completed_unix_ts or time.time()) - job.created_unix_ts,
+        "attempts": [{k: a[k] for k in ("rc", "killed", "seconds", "wedged")} for a in job.attempts],
+        "requeues": job.requeues, "wedges": job.wedges,
+        "platform": r.get("platform"), "device": m.get("device"),
+        "generated": r.get("generated"), "unique": r.get("unique"), "max_depth": r.get("max_depth"),
+        "discoveries": r.get("discoveries"), "start_depth": r.get("start_depth"),
+        "resumed": bool(r.get("resumed_from")), "first_dispatch_s": r.get("first_dispatch_s"),
+        "kernel_build_s": r.get("kernel_build_s"), "worker_seconds": r.get("seconds"),
+        "captures": m.get("graph_captures"), "capture_s": m.get("graph_capture_s"),
+        "peak_memory_bytes": r.get("peak_memory_bytes"), "launches": r.get("launches"),
+        "mux": r.get("mux"),
+    }
+
+
+def exact(job, pins, device=DEVICE):
+    need(job.status == "done", f"{job.id} {job.spec}: {job.status} {job.error}")
+    r = job.result
+    need((r["generated"], r["unique"]) == tuple(pins),
+         f"{job.id} {job.spec}: counts {(r['generated'], r['unique'])} != {pins}")
+    if device:
+        need(r["platform"] == "cuda" and str(r["metrics"]["device"]).startswith("cuda"),
+             f"{job.id}: ran on {r['platform']} {r['metrics'].get('device')}")
+        need(r["launches"]["compact"] > 0 and r["launches"]["merge_insert"] > 0,
+             f"{job.id}: launches {r['launches']}")
+    return line(job)
+
+
+def stale_age(job):
+    return float(re.search(r"heartbeat stale (\d+)s", job.attempts[0]["killed"]).group(1))
+
+
+if mode == "batch":
+    # 1. Exact jobs, two at a time, through the admission flight-check.
+    p1 = pool("jobs", max_inflight=2, admission_lint=True)
+    a = p1.submit(cfg["big"])
+    b = p1.submit(cfg["paxos"])
+    need(p1.wait_all(timeout=900), "jobs: timeout")
+    out({"item": "jobs", "jobs": [exact(a, cfg["big_pins"]), exact(b, cfg["paxos_pins"])],
+         "lint": [a.lint, b.lint]})
+    solo_wall = a.completed_unix_ts - a.created_unix_ts
+    # 2. A SIGKILL at a depth: requeued once, resumed from its rotation.
+    k = p1.submit(cfg["big"], chaos={"die_at_depth": cfg["die_depth"],
+                                     "marker": os.path.join(cfg["run_dir"], "kill.marker")})
+    need(k.wait(timeout=900), "kill: timeout")
+    kl = exact(k, cfg["big_pins"])
+    g = p1.gauges()
+    need(k.attempts[0]["rc"] == -9 and not k.attempts[0]["wedged"], f"kill: {k.attempts}")
+    need((k.requeues, g["crashes"], g["requeues"]) == (1, 1, 1), f"kill: {g}")
+    need(kl["resumed"] and kl["start_depth"] == cfg["die_depth"], f"kill: {kl['start_depth']}")
+    out({"item": "kill", "job": kl, "crashes": g["crashes"], "requeues": g["requeues"]})
+    # 3. A frozen dispatch beside a running sibling.
+    marker = os.path.join(cfg["run_dir"], "freeze.marker")
+    v = p1.submit(cfg["big"], chaos={"freeze_at_depth": cfg["freeze_depth"], "marker": marker})
+    s = p1.submit(cfg["big"])
+    need(p1.wait_all(timeout=900), "wedge: timeout")
+    vl, sl = exact(v, cfg["big_pins"]), exact(s, cfg["big_pins"])
+    need(v.wedges == 1 and v.attempts[0]["wedged"] and "mid-dispatch" in v.attempts[0]["killed"],
+         f"wedge: {v.attempts}")
+    need((s.wedges, s.requeues, len(s.attempts)) == (0, 0, 1), f"wedge sibling: {s.attempts}")
+    need(vl["resumed"] and vl["start_depth"] >= cfg["freeze_depth"], f"wedge: {vl['start_depth']}")
+    age = stale_age(v)
+    need(age <= cfg["stall_s"] + 2 * cfg["poll_s"] + 1, f"wedge verdict at {age}s")
+    quarantined = [r for r in read_journal(p1._journal.path).records
+                   if r["event"] == "quarantined" and r["job"] == v.id][0]
+    g = p1.gauges()
+    need((g["wedge_verdicts"], g["breaker_trips"]) == (1, 0), f"wedge: {g}")
+    out({"item": "wedge", "victim": vl, "sibling": sl, "stale_age_s": age,
+         "freeze_to_quarantine_s": quarantined["ts"] - os.stat(marker).st_mtime,
+         "sibling_wall_over_solo": sl["wall_s"] / solo_wall, "solo_wall_s": solo_wall})
+    p1.close()
+    # Items 4 and 5 may overlap the phase's restart drill: say so.
+    open(os.path.join(cfg["run_dir"], "items-1-3.done"), "w").close()
+    # 4. Four co-queued jobs as one --mux worker.
+    p2 = pool("mux", max_inflight=0, mux_k=4)
+    jobs = [p2.submit(cfg["small"]) for _ in range(4)]
+    with p2._cond:
+        p2._cfg.max_inflight = 4
+        p2._cond.notify_all()
+    need(p2.wait_all(timeout=900), "mux: timeout")
+    lines = [exact(j, cfg["small_pins"]) for j in jobs]
+    need(all(ln["mux"]["lanes"] == 4 for ln in lines) and len({ln["mux"]["group"] for ln in lines}) == 1,
+         f"mux: {[ln['mux'] for ln in lines]}")
+    g = p2.gauges()
+    need((g["mux_groups"], g["mux_lanes"]) == (1, 4) and g["mux_dispatches_saved"] >= 1, f"mux: {g}")
+    with open(jobs[0]._path("mux-result.json")) as fh:
+        summary = json.load(fh)
+    out({"item": "mux", "jobs": lines, "mux_groups": g["mux_groups"], "mux_lanes": g["mux_lanes"],
+         "mux_dispatches_saved": g["mux_dispatches_saved"], "summary": summary})
+    p2.close()
+    # 5. Two jobs frozen side by side (no marker: every attempt freezes)
+    # open the breaker; the host serves; a probe closes it.
+    p3 = pool("breaker", stall_s=cfg["breaker_stall_s"], requeue_limit=0, breaker_k=2,
+              max_inflight=2)
+    ws = [p3.submit(cfg["tiny"], chaos={"freeze_at_depth": cfg["tiny_freeze_depth"]})
+          for _ in range(2)]
+    need(p3.wait_all(timeout=900), "breaker: timeout")
+    need(all(w.status == "failed" and w.wedges == 1 for w in ws) and p3.degraded,
+         f"breaker: {[(w.status, w.wedges) for w in ws]}")
+    h = p3.submit(cfg["tiny"])
+    need(h.wait(timeout=900), "breaker host: timeout")
+    hl = exact(h, cfg["tiny_pins"], device=False)
+    need(h.engine == "host" and h.result["degraded"] is True and hl["platform"] == "cpu",
+         f"breaker host: {h.engine} {hl['platform']}")
+    t = time.time()
+    probed = p3.probe_device_now()
+    probe_s = time.time() - t
+    need(probed and not p3.degraded, "breaker: the probe did not close it")
+    d = p3.submit(cfg["tiny"])
+    need(d.wait(timeout=900), "breaker device: timeout")
+    dl = exact(d, cfg["tiny_pins"])
+    need(d.engine == "xla" and not d.degraded, f"breaker device: {d.engine}")
+    g = p3.gauges()
+    out({"item": "breaker", "wedgers": [line(w) for w in ws], "host": hl, "device": dl,
+         "probe_s": probe_s,
+         **{k: g[k] for k in ("breaker_trips", "breaker_closes", "degraded_jobs", "wedge_verdicts",
+                              "device_probes")}})
+    p3.close()
+    import torch
+    mods = sorted(m for m in sys.modules if m.startswith("stateright_tpu_torch")
+                  and m.rsplit(".", 1)[-1] in ("xla", "graphs", "_cuda", "xla_mux"))
+    out({"item": "pool_process", "cuda_initialized": torch.cuda.is_initialized(),
+         "kernel_modules": mods, "wall_s": time.time() - T0})
+elif mode == "restart-a":
+    p = pool("restart")
+    job = p.submit(cfg["big"], idempotency_key="restart-0")
+    out({"item": "restart_a", "pid": os.getpid(), "job": job.id})
+    job.wait(timeout=900)
+    out({"service_error": "restart-a was not killed"})
+    sys.exit(1)
+elif mode == "restart-b":
+    p = pool("restart")
+    recovery = p.gauges()["journal"]["recovery"]
+    job = p.submit(cfg["big"], idempotency_key="restart-0")
+    need(job.recovered and job.id == "job-0001", f"restart: {job.id} {job.recovered}")
+    need(job.wait(timeout=900), "restart: timeout")
+    jl = exact(job, cfg["big_pins"])
+    p.close()
+    done = [r for r in read_journal(p._journal.path).records if r["event"] == "completed"]
+    need(len(done) == 1 and done[0]["status"] == "done", f"restart: completions {done}")
+    import torch
+    out({"item": "restart_b", "recovery": recovery, "job": jl, "completed_records": len(done),
+         "cuda_initialized": torch.cuda.is_initialized(), "wall_s": time.time() - T0})
+"""
+
+
+def service_boot(mode: str, config: dict, timeout: float = 900.0) -> list:
+    """Runs one ``SERVICE_BOOT`` pool process to its end: its JSON lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", SERVICE_BOOT, mode, json.dumps(config)],
+                          cwd=root, capture_output=True, text=True, timeout=timeout)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    require(proc.returncode == 0 and not any("service_error" in ln for ln in lines),
+            f"service {mode}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
+    return lines
+
+
+def kill_service_workers(run_dir: str) -> int:
+    """SIGKILLs every worker group still alive that a pool under ``run_dir``
+    journaled (a pool killed or failed mid-phase leaves its workers in
+    sessions of their own). Returns how many it killed."""
+    killed = 0
+    for journal in glob.glob(os.path.join(run_dir, "*", "journal.jsonl*")):
+        with open(journal) as fh:
+            for ln in fh:
+                try:
+                    pid = json.loads(ln).get("pid")
+                    with open(f"/proc/{pid}/cmdline", "rb") as cmd:
+                        if b"worker.py" not in cmd.read():
+                            continue
+                    os.killpg(pid, 9)
+                    killed += 1
+                except (ValueError, TypeError, OSError):
+                    continue
+    return killed
+
+
+def replay_discovery(model, name: str, reprs: list) -> bool:
+    """Re-executes a worker's discovery (its actions' ``repr``) from an init
+    state on the host model: True when the path is one and the property's
+    expectation holds at its end."""
+    prop = model.property(name)
+    for state in model.init_states():
+        states = [state]
+        for want in reprs:
+            acts = []
+            model.actions(states[-1], acts)
+            nxt = [a for a in acts if repr(a) == want]
+            nxt_state = model.next_state(states[-1], nxt[0]) if nxt else None
+            if nxt_state is None:
+                break
+            states.append(nxt_state)
+        else:
+            if prop.expectation == Expectation.SOMETIMES:
+                ok = prop.condition(model, states[-1])
+            elif prop.expectation == Expectation.ALWAYS:
+                ok = not prop.condition(model, states[-1])
+            else:  # EVENTUALLY: a terminal path on which the condition never held
+                terminal = []
+                model.actions(states[-1], terminal)
+                ok = not terminal and not any(prop.condition(model, st) for st in states)
+            if ok:
+                return True
+    return False
+
+
+def service_jobs_checked(lines: list, models: dict) -> None:
+    """Every discovery of every finished job in ``lines`` re-executed."""
+    for ln in lines:
+        for job in ln:
+            for name, reprs in (job.get("discoveries") or {}).items():
+                require(replay_discovery(models[job["spec"]], name, reprs),
+                        f"service {job['id']} {job['spec']}: discovery {name!r} does not replay")
+
+
+def path_launches(jobs: list) -> dict:
+    """The sorted set's kernels launched by ``jobs``' finished attempts."""
+    return {k: sum((j.get("launches") or {}).get(k, 0) for j in jobs) for k in PATH_KERNELS["sorted"]}
+
+
+def service_phase(config: dict = SERVICE_CARD, explorer_rm: int = 8) -> dict:
+    """The checker service on the card, its pools in processes of their own
+    (``SERVICE_BOOT``): exact jobs, a kill and resume, a wedge beside a
+    sibling, a mux group, the breaker to the host and back, a pool killed
+    mid-job and restarted over its run dir, and (in this process) the
+    Explorer as a client. Returns the launches by path. A config with
+    ``platform="cpu"`` rehearses the phase on the CPU (no launches)."""
+    t0 = time.perf_counter()
+    run_dir = os.path.join(CKPT_DIR, "service")
+    os.makedirs(run_dir)
+    cfg = dict(config, run_dir=run_dir)
+    root = os.path.dirname(os.path.abspath(__file__))
+    batch_out = os.path.join(run_dir, "batch.out")
+    with open(batch_out, "w") as fh:
+        batch_proc = subprocess.Popen([sys.executable, "-c", SERVICE_BOOT, "batch", json.dumps(cfg)],
+                                      cwd=root, stdout=fh, stderr=subprocess.STDOUT)
+    try:
+        return service_drills(config, cfg, run_dir, root, batch_proc, batch_out, explorer_rm, t0)
+    finally:
+        # A failed check must leave no pool and no worker running.
+        if batch_proc.poll() is None:
+            batch_proc.kill()
+            batch_proc.wait(timeout=60)
+        kill_service_workers(run_dir)
+
+
+def service_drills(config, cfg, run_dir, root, batch_proc, batch_out, explorer_rm, t0) -> dict:
+    """``service_phase``'s body once the batch pool process runs."""
+    on_card = config["platform"] != "cpu"
+    # 6. The pool process SIGKILLed mid-job; a new pool finishes the job.
+    # It runs beside the batch pool's items 4 and 5 (their walls are not
+    # the phase's measurements), after items 1-3 (which are).
+    deadline = time.monotonic() + 900
+    while (not os.path.exists(os.path.join(run_dir, "items-1-3.done"))
+           and batch_proc.poll() is None and time.monotonic() < deadline):
+        time.sleep(0.5)
+    if batch_proc.poll() is not None and batch_proc.returncode != 0:
+        with open(batch_out) as fh:
+            require(False, f"service batch: exit {batch_proc.returncode}\n{fh.read()[-6000:]}")
+    with open(os.path.join(run_dir, "restart-a.out"), "w") as log:
+        first = subprocess.Popen([sys.executable, "-c", SERVICE_BOOT, "restart-a", json.dumps(cfg)],
+                                 cwd=root, stdout=log, stderr=subprocess.STDOUT)
+    journal = os.path.join(run_dir, "restart", "journal.jsonl")
+    deadline = time.monotonic() + 600
+    beat = None
+    while time.monotonic() < deadline and first.poll() is None:
+        hbs = glob.glob(os.path.join(run_dir, "restart", "svc-*", "job-0001", "hb.json"))
+        beat = heartbeat.read(hbs[0]) if hbs else None
+        if beat is not None and beat.get("seq", 0) >= 1:
+            break
+        time.sleep(0.2)
+    alive = first.poll() is None
+    first.kill()
+    first.wait(timeout=60)
+    require(alive and beat is not None, f"service restart: no beat ({beat})")
+    started = [json.loads(ln) for ln in open(journal)]
+    worker_pid = [r for r in started if r["event"] == "started"][0]["pid"]
+    orphan_alive = os.path.exists(f"/proc/{worker_pid}")
+    second = {ln["item"]: ln for ln in service_boot("restart-b", cfg)}
+    restart = second["restart_b"]
+    require(restart["cuda_initialized"] is False, "service restart: the pool process touched CUDA")
+    require(not os.path.exists(f"/proc/{worker_pid}") or open(f"/proc/{worker_pid}/stat").read().split()[2] == "Z",
+            "service restart: the orphaned worker survived the restart")
+    rc = batch_proc.wait(timeout=900)
+    with open(batch_out) as fh:
+        text = fh.read()
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    require(rc == 0 and not any("service_error" in ln for ln in lines),
+            f"service batch: exit {rc}\n{text[-6000:]}")
+    batch = {ln["item"]: ln for ln in lines}
+    require(batch["pool_process"]["cuda_initialized"] is False
+            and not batch["pool_process"]["kernel_modules"],
+            f"service: the pool process touched CUDA: {batch['pool_process']}")
+    models = {spec: resolve_spec(spec)[0] for spec in
+              (config["big"], config["paxos"], config["small"], config["tiny"])}
+    service_jobs_checked([batch["jobs"]["jobs"], [batch["kill"]["job"]],
+                          [batch["wedge"]["victim"], batch["wedge"]["sibling"]],
+                          batch["mux"]["jobs"],
+                          [batch["breaker"]["host"], batch["breaker"]["device"]],
+                          [restart["job"]]], models)
+    # 7. The Explorer as a client of a pool, in this process.
+    pool = CheckerService(ServiceConfig(run_dir=os.path.join(run_dir, "explorer"),
+                                        admission_lint=False, probe_auto=False))
+    zero_launches()
+    app, checker = make_app(PackedTwoPhaseSys(explorer_rm).checker(), service=pool,
+                            **({} if on_card else {"device": "cpu"}))
+    status = app.status()
+    require((status["job"], status["degraded"], status["pool"]["interactive"]) == ("job-0001", False, 1),
+            f"service explorer: status {({k: status.get(k) for k in ('job', 'degraded')})}")
+    code, listing = app.pool()
+    require(code == 200 and listing["jobs"]["job-0001"]["kind"] == "interactive"
+            and listing["jobs"]["job-0001"]["status"] == "running", "service explorer: /.pool")
+    code, inits = app.states("/")
+    code2, views = app.states("/" + inits[0]["fingerprint"])
+    require(code == code2 == 200 and views, "service explorer: clicks")
+    explorer_launches = launches_now()
+    clicked = app.status()
+    app.close()
+    released = pool.metrics()
+    require(released["interactive"] == 0 and released["jobs"]["job-0001"]["status"] == "done",
+            "service explorer: release")
+    pool.close()
+    launches = {
+        "service_jobs": path_launches(batch["jobs"]["jobs"]),
+        "service_kill": path_launches([batch["kill"]["job"]]),
+        "service_wedge": path_launches([batch["wedge"]["victim"], batch["wedge"]["sibling"]]),
+        "service_mux": {k: batch["mux"]["summary"]["launches"][k] for k in PATH_KERNELS["sorted"]},
+        "service_breaker": path_launches([batch["breaker"]["device"]]),
+        "service_restart": path_launches([restart["job"]]),
+        "service_explorer": explorer_launches,
+    }
+    for path, counts in launches.items():
+        require(all(n > 0 for n in counts.values()) or not on_card,
+                f"service: {path} launched {counts}")
+
+    def brief(job):
+        return {k: job[k] for k in ("id", "spec", "wall_s", "first_dispatch_s", "kernel_build_s",
+                                    "worker_seconds", "captures", "capture_s", "peak_memory_bytes",
+                                    "launches", "attempts", "start_depth", "engine", "platform",
+                                    "device", "generated", "unique", "max_depth")}
+
+    emit({"phase": "service", "wall_s": time.perf_counter() - t0,
+          "jobs": [brief(j) for j in batch["jobs"]["jobs"]], "lint": batch["jobs"]["lint"],
+          "kill": {**brief(batch["kill"]["job"]), "crashes": batch["kill"]["crashes"],
+                   "requeues": batch["kill"]["requeues"]},
+          "wedge": {"victim": brief(batch["wedge"]["victim"]), "sibling": brief(batch["wedge"]["sibling"]),
+                    **{k: batch["wedge"][k] for k in ("stale_age_s", "freeze_to_quarantine_s",
+                                                      "sibling_wall_over_solo", "solo_wall_s")},
+                    "stall_s": config["stall_s"]},
+          "mux": {"jobs": [brief(j) for j in batch["mux"]["jobs"]],
+                  **{k: batch["mux"][k] for k in ("mux_groups", "mux_lanes", "mux_dispatches_saved")},
+                  "summary": batch["mux"]["summary"]},
+          "breaker": {"wedgers": [{k: w[k] for k in ("status", "wedges", "attempts", "wall_s")}
+                                  for w in batch["breaker"]["wedgers"]],
+                      "host": brief(batch["breaker"]["host"]), "device": brief(batch["breaker"]["device"]),
+                      **{k: batch["breaker"][k] for k in ("probe_s", "breaker_trips", "breaker_closes",
+                                                          "degraded_jobs", "wedge_verdicts",
+                                                          "device_probes")}},
+          "restart": {"recovery": restart["recovery"], "job": brief(restart["job"]),
+                      "orphan_alive_at_restart": orphan_alive, "killed_at_beat_seq": beat.get("seq"),
+                      "completed_records": restart["completed_records"],
+                      "pool_wall_s": restart["wall_s"]},
+          "explorer": {"status_keys": sorted(k for k in ("job", "degraded", "pool") if k in clicked),
+                       "job": status["job"], "pool_interactive": status["pool"]["interactive"],
+                       "launches": explorer_launches, "released": released["jobs"]["job-0001"]["status"]},
+          "pool_process": batch["pool_process"]})
     return launches
 
 
@@ -3639,12 +4077,14 @@ def run_phases() -> int:
     device_phase()
     # The command lines first, while this process holds little of the card.
     cli_launches = cli_phase()
+    service_launches = service_phase()
     small_phase()
     model, checker, launches, ladder = main_path_phase()
     new_paths = {
         "checkpoint_rm8": checkpoint_rm8_phase(model, checker),
         "autockpt_rm8": autockpt_rm8_phase(model),
         **cli_launches,
+        **service_launches,
         **obs_phase(),
     }
     repeat_and_profile_phase(model)

@@ -50,13 +50,26 @@ class Checker:
         raise NotImplementedError
 
     def metrics(self) -> Dict[str, Any]:
-        """A telemetry snapshot: the counters every engine has."""
-        return {
+        """A telemetry snapshot: the counters every engine has, and the
+        checker service's job id once :meth:`attach_job` set one."""
+        out = {
             "engine": type(self).__name__,
             "state_count": self.state_count(),
             "unique_state_count": self.unique_state_count(),
             "max_depth": self.max_depth(),
         }
+        if self._service_job_id is not None:
+            out["job_id"] = self._service_job_id
+        return out
+
+    # --- service hooks (service/) ------------------------------------------
+
+    #: Set when this checker serves a ``CheckerService`` job (the Explorer
+    #: registers its interactive checker), so that ``metrics()`` names it.
+    _service_job_id: Optional[str] = None
+
+    def attach_job(self, job_id: str) -> None:
+        self._service_job_id = job_id
 
     _started = False
 

@@ -19,11 +19,18 @@ OpenMetrics exposition of this session, ``obs/promexport.py``), ``GET
 ``GET /.dash`` (the dashboard, ``ui/dash.htm``) and the single-page UI of
 ``ui/`` (the port's own copy of the JAX package's).
 
-The checker service of the JAX package (``stateright_tpu/service``) is not
-ported yet (ROADMAP A10c), so here the app is always what the reference's
-``ExplorerApp`` is without a service: ``/.status`` has no ``job``,
-``degraded`` or ``pool`` key; ``/.pool``, ``/.jobs/{id}/trace.json`` and
-``/.trace.json`` answer 404; and a ``service=`` argument raises.
+The Explorer is one client of the checker service (``service/``), as the
+reference's is: ``make_app``/``serve`` with ``service=`` check the
+session cap before building the checker, register it as an interactive
+pool job (served degraded on the host engine while the service's breaker
+is open) and release it at ``close``; ``/.status`` then carries ``job``,
+``degraded`` and ``pool``, ``/.pool`` the service's status,
+``/.jobs/{id}/trace.json`` and ``/.trace.json`` the job's and the pool's
+Chrome traces, ``/.jobs/{id}/metrics.json`` a batch job's series, and
+``/.metrics`` the pool gauges and every job's snapshot. Without a service
+(``service=None``, the default: the port creates no pool of its own) the
+app is the reference's service-less app: those keys are absent and those
+routes answer 404.
 
 The app logic lives in :class:`ExplorerApp`, framework-free and directly
 callable: tests drive it without a live server, as stateright's tests call
@@ -110,10 +117,15 @@ class Snapshot:
 class ExplorerApp:
     """The Explorer's request handlers, independent of any HTTP machinery."""
 
-    def __init__(self, checker, snapshot: Optional[Snapshot] = None):
+    def __init__(self, checker, snapshot: Optional[Snapshot] = None,
+                 service=None, job=None):
         self._checker = checker
         self._snapshot = snapshot or Snapshot()
         self._lock = threading.Lock()
+        #: The checker service this session is a client of, and its pool
+        #: job (None, None without a service).
+        self._service = service
+        self._job = job
         device = getattr(checker, "_device", None)
         #: The index of the card the checker runs on, selected by every
         #: thread that takes the lock (None: the host, or the CPU).
@@ -142,7 +154,7 @@ class ExplorerApp:
         with self._locked():
             checker = self._checker
             recent = self._snapshot.actions
-            return {
+            out = {
                 "done": checker.is_done(),
                 "model": type(checker.model()).__name__,
                 "state_count": checker.state_count(),
@@ -159,6 +171,14 @@ class ExplorerApp:
                 # when the heartbeat is off.
                 "heartbeat_age_s": self._heartbeat_age(checker),
             }
+            # The service client's keys: this session's pool job, whether
+            # it is served degraded (the host engine while the breaker is
+            # open), and the pool's gauges.
+            if self._service is not None:
+                out["job"] = self._job.id if self._job is not None else None
+                out["degraded"] = self._job.degraded if self._job is not None else False
+                out["pool"] = self._service.gauges()
+            return out
 
     def run_to_completion(self) -> None:
         """``POST /.runtocompletion`` (explorer.rs:178-187); the drive
@@ -245,40 +265,85 @@ class ExplorerApp:
             return 200, results
 
     def close(self) -> None:
-        """Releases the session (a no-op until the checker service, whose
-        session slot the reference releases here, is ported)."""
+        """Releases this session's pool slot (the service's
+        ``max_sessions``); ``serve`` calls it when the server stops, and an
+        embedder of a long-lived service must call it too."""
+        if self._service is not None and self._job is not None:
+            self._service.release_interactive(self._job)
 
     def pool(self) -> Tuple[int, Any]:
-        """``GET /.pool``: the checker service's status; 404 without one."""
-        return 404, NO_SERVICE
+        """``GET /.pool``: the service's gauges and per-job snapshots; 404
+        without a service."""
+        if self._service is None:
+            return 404, NO_SERVICE
+        return 200, self._service.metrics()
 
     def job_trace(self, job_id: str) -> Tuple[int, Any]:
-        """``GET /.jobs/{id}/trace.json``: a service job's span trace; 404
-        without a service."""
-        return 404, NO_SERVICE
+        """``GET /.jobs/{id}/trace.json``: a service job's span trace as
+        Chrome trace JSON (the service's mtime-cached export, served as its
+        raw bytes); 404 without a service, for an unknown job or a job
+        without a trace."""
+        if self._service is None:
+            return 404, NO_SERVICE
+        try:
+            path = self._service.job_trace_chrome(job_id)
+        except KeyError:
+            return 404, f"unknown job {job_id}"
+        if path is None:
+            return 404, f"job {job_id} has no span trace"
+        with open(path, "rb") as fh:
+            return 200, fh.read()
 
     def merged_trace(self) -> Tuple[int, Any]:
-        """``GET /.trace.json``: the service's merged trace; 404 without a
-        service."""
-        return 404, NO_SERVICE
+        """``GET /.trace.json``: the pool's merged distributed trace
+        (``obs.collect`` over its run dir), as raw Chrome trace bytes; 404
+        without a service or without a span file."""
+        if self._service is None:
+            return 404, NO_SERVICE
+        path = self._service.merged_trace_chrome()
+        if path is None:
+            return 404, "no span traces in the run dir (tracing off?)"
+        with open(path, "rb") as fh:
+            return 200, fh.read()
 
     def metrics_text(self) -> str:
         """``GET /.metrics``: the OpenMetrics exposition of this session,
-        labeled ``job="interactive"``. Its counters equal the checker's
-        ``metrics()``."""
+        labeled with its pool job id (``job="interactive"`` without a
+        service), plus the pool gauges and every other pool job's snapshot.
+        Its counters equal the checkers' ``metrics()``."""
+        own = self._job.id if self._job is not None else INTERACTIVE
         with self._locked():
             samples = [promexport.build_info_sample()]
-            samples += promexport.engine_samples(self._checker.metrics(), {"job": INTERACTIVE})
+            samples += promexport.engine_samples(self._checker.metrics(), {"job": own})
+        if self._service is not None:
+            samples += promexport.pool_samples(self._service.gauges())
+            for job in self._service.jobs():
+                if self._job is not None and job.id == self._job.id:
+                    continue  # this session's checker is rendered above
+                m = job.metrics()
+                if m is not None:
+                    samples += promexport.engine_samples(m, {"job": job.id})
         return promexport.render_openmetrics(samples)
 
     def job_metrics(self, job_id: str, window: Optional[int] = None) -> Tuple[int, Any]:
-        """``GET /.jobs/{id}/metrics.json``: this session's live series as
-        ``{"job", "window", "rows"}``, oldest row first, one new sample a
-        poll; another job id answers 404 (there is no service)."""
+        """``GET /.jobs/{id}/metrics.json``: a series as ``{"job",
+        "window", "rows"}``, oldest row first. This session's own job (its
+        pool job id, or ``interactive`` without a service) serves a live
+        ring that grows one sample a poll; a service's batch job serves its
+        recorded ``metrics.jsonl``; anything else answers 404."""
         # Clamped into [1, max]: a zero or negative ?n= takes the default.
         window = max(1, min(window or _SERIES_WINDOW, _SERIES_WINDOW_MAX))
-        if job_id != INTERACTIVE:
-            return 404, NO_SERVICE
+        own = self._job.id if self._job is not None else INTERACTIVE
+        if job_id != own:
+            if self._service is None:
+                return 404, NO_SERVICE
+            try:
+                rows = self._service.job_metrics_series(job_id, window=window)
+            except KeyError:
+                return 404, f"unknown job {job_id}"
+            if rows is None:
+                return 404, f"job {job_id} has no metrics series"
+            return 200, {"job": job_id, "window": window, "rows": rows}
         # Sample, append and snapshot under one hold of the lock: the
         # server is threading.
         with self._locked():
@@ -364,7 +429,9 @@ def serve(builder, addresses, engine: str = "auto", service=None, **spawn_kwargs
     server, a drive thread advances an unblocked checker every 50 ms and a
     re-arm thread resets the recent-path snapshot every 4 s; both stop with
     the server (:func:`start` starts all three without blocking).
-    ``service`` raises (ROADMAP A10c)."""
+    ``service`` is the :class:`~stateright_tpu_torch.service.CheckerService`
+    to join as a client (see :func:`make_app`); the session's slot is
+    released when the server stops."""
     app, checker = make_app(builder, engine=engine, service=service, **spawn_kwargs)
     server, stop, threads = start(app, addresses)
     host = _parse_address(addresses)[0]
@@ -416,18 +483,26 @@ def make_app(builder, engine: str = "auto", service=None, **spawn_kwargs):
     """Builds the Explorer app and its demand-driven checker without
     binding a socket (the test entry point, as explorer.rs:314-351). See
     :func:`serve` for ``engine``; ``spawn_kwargs`` reach the GPU checker
-    (``device``, capacities, ``dedup``). Returns ``(app, checker)``."""
+    (``device``, capacities, ``dedup``). Returns ``(app, checker)``.
+
+    With ``service`` the session is one of the pool's jobs: the session
+    cap is checked BEFORE the checker is built (the GPU backend allocates
+    on the card, the spend the cap exists to gate; ``AdmissionError`` past
+    ``max_sessions``), the checker is registered as an interactive job, and
+    while the service's breaker is open a GPU session is served degraded
+    on the host engine (the capacities dropped)."""
     from ..xla import is_packed
 
-    if service is not None:
-        raise NotImplementedError(
-            "the Explorer's service= (the checker service of stateright_tpu/service) "
-            "is not ported yet (ROADMAP A10c)"
-        )
     if engine not in ("auto", "host", "xla"):
         raise ValueError(f"engine must be 'auto', 'host' or 'xla': {engine!r}")
+    if service is not None:
+        service.check_session_capacity()
     snapshot = Snapshot()
-    if engine == "xla" or (engine == "auto" and is_packed(builder._model)):
+    wants_device = engine == "xla" or (engine == "auto" and is_packed(builder._model))
+    degraded = False
+    if wants_device and service is not None and service.degraded:
+        wants_device, degraded = False, True
+    if wants_device:
         from .device_on_demand import DeviceOnDemandChecker
 
         # The snapshot visitor would force one level a dispatch in batch
@@ -435,13 +510,16 @@ def make_app(builder, engine: str = "auto", service=None, **spawn_kwargs):
         # leaves the recent-path panel to the host backend.
         checker = DeviceOnDemandChecker(builder, **spawn_kwargs)
     else:
-        if spawn_kwargs:
+        if spawn_kwargs and not degraded:
             raise TypeError(
                 f"spawn kwargs {sorted(spawn_kwargs)} only apply to the GPU "
                 "engine; this model resolves to the host backend"
             )
         checker = builder.visitor(snapshot.visit).spawn_on_demand()
-    return ExplorerApp(checker, snapshot), checker
+    if service is None:
+        return ExplorerApp(checker, snapshot), checker
+    job = service.register_interactive(checker, degraded=degraded)
+    return ExplorerApp(checker, snapshot, service=service, job=job), checker
 
 
 def _rearm_loop(app: ExplorerApp, stop: threading.Event) -> None:

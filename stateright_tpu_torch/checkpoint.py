@@ -27,7 +27,8 @@ to ``<path>.1`` (and so on); a torn, foreign or tampered file raises the
 typed :class:`CheckpointCorrupt`, and :func:`latest_valid_checkpoint` falls
 back to the newest rotation that verifies. :class:`AutoCheckpointer` is the
 in-loop cadence of ``spawn_xla(checkpoint_to=...)``. The reference's
-fault-injection hook (its ``chaos`` module) is not ported.
+fault-injection hook is here too: a ``checkpoint.torn`` clause of
+``STPU_CHAOS`` (``chaos.py``) tears the file just written.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from . import chaos
 from .ops.words import to_u32
 
 #: v3: the metadata embeds a payload SHA-256 (``payload_sha256``) that loads
@@ -183,6 +185,13 @@ def save_checkpoint(checker, path: str, keep: int = 1) -> None:
                     os.replace(older, f"{dst}.{i}")
             os.replace(dst, f"{dst}.1")
         os.replace(tmp, dst)
+        inj = chaos.fire("checkpoint.torn", size=os.path.getsize(dst))
+        if inj is not None:
+            # Deterministic fault injection (chaos.py): tear the rotation
+            # just written at byte ``at``, the corrupt-newest shape that
+            # latest_valid_checkpoint falls back from. A no-op unless an
+            # STPU_CHAOS plan names it.
+            chaos.tear_file(dst, inj.get("at", 1))
     finally:
         # Only a failed save leaves the temp behind (success replaced it).
         try:

@@ -142,3 +142,13 @@ def count_launch(wrapper) -> None:
         wrapper.captured += 1
     else:
         wrapper.launches += 1
+
+
+if __name__ == "__main__":
+    # ``python stateright_tpu_torch/ops/_cuda.py build``: build every
+    # missing library (the checker service's compile-on-admit step).
+    import sys
+
+    if sys.argv[1:] != ["build"]:
+        sys.exit("usage: _cuda.py build")
+    print(f"built in {build():.1f}s", flush=True)

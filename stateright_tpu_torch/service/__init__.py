@@ -1,0 +1,34 @@
+"""Checking-as-a-service: a multi-tenant pool over one card.
+
+Counterpart of ``stateright_tpu/service`` without its fleet (ROADMAP
+A10c-2): :class:`CheckerService` owns the card and serves N concurrent
+checking jobs -- batch jobs in supervised worker subprocesses (per-job
+heartbeat, auto-checkpoint, span trace; a wedge quarantines one job, never
+the pool) and interactive Explorer sessions as registered in-process
+clients -- behind admission control, with a breaker that degrades the pool
+to the host engine instead of dying, and a journal that a restarted pool
+replays.
+"""
+
+from .core import (
+    SERVICE_COUNTERS,
+    AdmissionError,
+    CheckerService,
+    Job,
+    ServiceConfig,
+)
+from .journal import Journal, JournalTorn, read_journal
+from .registry import SHIPPED, resolve
+
+__all__ = [
+    "AdmissionError",
+    "CheckerService",
+    "Job",
+    "Journal",
+    "JournalTorn",
+    "read_journal",
+    "SERVICE_COUNTERS",
+    "ServiceConfig",
+    "SHIPPED",
+    "resolve",
+]

@@ -4,6 +4,7 @@ witness paths. Plus the device rule and the port's import hygiene."""
 
 import ast
 import pathlib
+import re
 from dataclasses import astuple
 
 import jax.numpy as jnp
@@ -147,6 +148,46 @@ def test_port_imports_neither_jax_nor_the_reference_package(path):
         if m.split(".")[0] in ("jax", "jaxlib", "stateright_tpu")
     ]
     assert not bad, f"{path.name} imports {bad}"
+
+
+#: A string that names a script of the JAX package or of its tools (a path
+#: ending in ``.py``, a bare tool name, a ``stateright_tpu.*`` module for
+#: ``runpy``/``-m``), or code that imports either. (A bare "stateright_tpu"
+#: is the Chrome traces' category, the same in both packages.)
+_REFERENCE_RUN = re.compile(
+    r"(^|/)stateright_tpu/\S*\.py$|(^|/)tools/\S+\.py$"
+    r"|^(stpu_lint|warm_cache|service_chaos)\.py$|^stateright_tpu\.[\w.]+$"
+    r"|\b(import|from) (stateright_tpu|jax)\b(?!_)"
+)
+
+
+def _strings(path: pathlib.Path):
+    """Every string constant of ``path`` but the docstrings."""
+    tree = ast.parse(path.read_text(), str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+                and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)):
+            docs.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs:
+            yield node.value
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted((ROOT / "stateright_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_port_runs_no_script_of_the_reference_package(path):
+    """No module of the port, and nothing in ``chip_smoke.py``, names a script
+    of the JAX package or its tools to run (the reference's service runs
+    ``tools/stpu_lint.py`` and ``tools/warm_cache.py``), nor holds code that
+    imports either package."""
+    bad = [s for s in _strings(path) if _REFERENCE_RUN.search(s)]
+    assert not bad, f"{path.name} names {bad}"
 
 
 class _SkipBase:

@@ -19,7 +19,7 @@ JAX package's Explorer and against each other.
   port, the GPU and host backends agree on fingerprints exactly.
 - A live socket on ``127.0.0.1:0``: ``/.status``, a click, ``/.metrics``
   parsed back with its counters equal to ``metrics()``, the service-less
-  404s, the UI files; ``service=`` raising; and ``explore`` of 2pc's and
+  404s, the UI files; a full service refusing the session; and ``explore`` of 2pc's and
   paxos's command lines and ``serve`` of a packed model, each started
   in-process on a free port and asked for ``/.status``.
 """
@@ -150,7 +150,7 @@ def test_run_to_completion_finishes_via_drive_and_recent_path():
 # --- the GPU backend (tests/test_device_explorer.py) ---------------------------
 
 
-def test_auto_engine_selection_and_service_refused():
+def test_auto_engine_selection_and_service_refused(tmp_path):
     _, dev = make_app(PackedTwoPhaseSys(3).checker(), **KW)
     assert isinstance(dev, DeviceOnDemandChecker)
     _, host = make_app(TwoPhaseSys(3).checker())
@@ -159,10 +159,20 @@ def test_auto_engine_selection_and_service_refused():
     assert isinstance(forced, OnDemandChecker)
     with pytest.raises(TypeError, match="spawn kwargs"):
         make_app(TwoPhaseSys(3).checker(), **KW)
-    for call in (lambda: make_app(TwoPhaseSys(3).checker(), service=object()),
-                 lambda: explorer.serve(TwoPhaseSys(3).checker(), "127.0.0.1:0", service=object())):
-        with pytest.raises(NotImplementedError, match="A10c"):
-            call()
+    # A service with no session slot refuses the session before a checker
+    # is built, through make_app and serve alike.
+    from stateright_tpu_torch.service import AdmissionError, CheckerService
+
+    svc = CheckerService(run_dir=str(tmp_path / "svc"), platform="cpu", max_sessions=0,
+                         journal=False, admission_lint=False, probe_auto=False)
+    try:
+        for call in (lambda: make_app(TwoPhaseSys(3).checker(), service=svc),
+                     lambda: explorer.serve(TwoPhaseSys(3).checker(), "127.0.0.1:0", service=svc)):
+            with pytest.raises(AdmissionError, match="interactive sessions full"):
+                call()
+        assert svc.gauges()["rejected"] == 2
+    finally:
+        svc.close()
 
 
 def _walk(apps, clicks=CLICKS):

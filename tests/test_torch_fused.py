@@ -42,6 +42,17 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
+_FUSED = {}
+
+
+def _fused(rm):
+    """The port's default block at rm on the CPU, run once for the module:
+    several tests read the same finished run (none mutates it)."""
+    if rm not in _FUSED:
+        _FUSED[rm] = port.PackedTwoPhaseSys(rm).checker().spawn_xla(**CPU).join()
+    return _FUSED[rm]
+
+
 def _levels(checker, keys=("depth", "frontier", "generated", "unique")):
     return [tuple(r[k] for k in keys) for r in checker.level_log]
 
@@ -86,8 +97,10 @@ def test_fused_matches_reference(rm, cand_ladder):
     r = ref.PackedTwoPhaseSys(rm).checker().spawn_xla(
         levels_per_dispatch=32, dedup="sorted", cand_ladder=cand_ladder, shrink_exit="on"
     ).join()
-    kw = {} if cand_ladder == 3 else dict(cand_ladder=cand_ladder)
-    c = port.PackedTwoPhaseSys(rm).checker().spawn_xla(**kw, **CPU).join()
+    if cand_ladder == 3:
+        c = _fused(rm)
+    else:
+        c = port.PackedTwoPhaseSys(rm).checker().spawn_xla(cand_ladder=cand_ladder, **CPU).join()
     assert (c.state_count(), c.unique_state_count()) == EXPECTED_2PC[rm]
     _assert_same_search(r, c)
     # Block boundaries, shrink-exits, and each level's bucket and candidate
@@ -106,7 +119,7 @@ def test_fused_matches_reference(rm, cand_ladder):
 @pytest.mark.parametrize("rm", sorted(EXPECTED_2PC))
 def test_fused_equals_the_one_level_path(rm):
     one = port.PackedTwoPhaseSys(rm).checker().spawn_xla(levels_per_dispatch=1, **CPU).join()
-    fused = port.PackedTwoPhaseSys(rm).checker().spawn_xla(**CPU).join()
+    fused = _fused(rm)
     _assert_same_search(one, fused)
     assert len(one.dispatch_log) == len(one.level_log) > len(fused.dispatch_log)
 
@@ -158,7 +171,7 @@ def test_overflow_retries_keep_the_search_at_rm4(tiny_cand_caps):
 
 
 def test_shrink_exit_on_and_off():
-    on = port.PackedTwoPhaseSys(4).checker().spawn_xla(**CPU).join()
+    on = _fused(4)
     off = port.PackedTwoPhaseSys(4).checker().spawn_xla(shrink_exit="off", **CPU).join()
     _assert_same_search(on, off)
     assert on.metrics()["shrink_exit"] is True and on.metrics()["shrink_exits"] > 0
@@ -261,8 +274,7 @@ def test_capacity_hints_size_the_next_checker(monkeypatch, tiny_cand_caps):
 
 
 def test_fused_metrics():
-    c = port.PackedTwoPhaseSys(3).checker().spawn_xla(**CPU).join()
-    m = c.metrics()
+    m = _fused(3).metrics()
     assert m["levels_per_dispatch"] == 32 and m["shrink_exit"] is True
     # The CPU runs the gated level eagerly: no graphs, no dead replays.
     assert (m["graph_captures"], m["dead_replays"], m["shrink_exits"]) == (0, 0, 0)
@@ -272,7 +284,7 @@ def test_fused_metrics():
 def test_shrink_exit_metric_is_the_references_bool():
     """``metrics()["shrink_exit"]`` has the reference's type and value."""
     want = ref.PackedTwoPhaseSys(3).checker().spawn_xla(dedup="sorted").join().metrics()
-    got = port.PackedTwoPhaseSys(3).checker().spawn_xla(**CPU).join().metrics()
+    got = _fused(3).metrics()
     assert type(got["shrink_exit"]) is type(want["shrink_exit"]) is bool
     assert got["shrink_exit"] == want["shrink_exit"]
 
