@@ -135,8 +135,21 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    killed, the job finished once), and ``make_app(PackedTwoPhaseSys(8)
    .checker(), service=pool)`` in this process; each job's wall from
    submit, its worker's seconds to its first dispatch, captures, peak
-   memory and launches printed, every discovery re-executed; and
-   observability (``obs``): rm=8 cold on a fresh model instance, then warm
+   memory and launches printed, every discovery re-executed; the
+   checker service's fleet (``fleet``, right after ``service``), two pools
+   of this card behind one ``FleetService`` with ``pin_devices=True``, its
+   processes leaving CUDA uninitialised: two ``2pc:8`` jobs through
+   ``device.lost`` (the victim evacuated and resumed on the other pool
+   from its own rotation, both exact, the sibling untouched, the lost
+   pool's journal holding the evacuation and ``fleet.jsonl`` the route and
+   then the migration; pool 1's worker recording the fallback of an
+   ordinal the machine lacks), alone; then side by side a fleet SIGKILLed
+   at a job's first committed rotation and restarted over its run dir
+   (orphans killed, routes replayed, one completion a job), the chaos
+   harness's ``device_lost`` and ``kill`` scenarios at ``--fleet 2`` (each
+   after its baseline, ``ok``), and a ``2pc:4`` job flaky on pool 0 whose
+   wedge opens only that pool's breaker and migrates it to pool 1 on the
+   card; and observability (``obs``): rm=8 cold on a fresh model instance, then warm
    with everything off, on (a span trace, a heartbeat, a metrics series
    every level, the phase split), off and on, each wall printed, the off
    runs holding ``NULL_TRACER`` and giving the on runs' logs; the trace,
@@ -178,8 +191,8 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    against its plain version, the widest shard's timed;
 15. prints the ``{"kernels": [...]}`` line (launches summed over every
    main-path run: rm=8, Paxos 3c/3s, single-copy-register, the
-   host-verified runs and the paths of items 9 to 14, the service's from
-   its workers' ``--out`` files, each also by path)
+   host-verified runs and the paths of items 9 to 14, the service's and
+   the fleet's from their workers' ``--out`` files, each also by path)
    and, last, the device line.
 
 Every line but the nvidia-smi one is a JSON object. Any failed check
@@ -200,6 +213,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -1950,7 +1964,7 @@ def kill_service_workers(run_dir: str) -> int:
     journaled (a pool killed or failed mid-phase leaves its workers in
     sessions of their own). Returns how many it killed."""
     killed = 0
-    for journal in glob.glob(os.path.join(run_dir, "*", "journal.jsonl*")):
+    for journal in glob.glob(os.path.join(run_dir, "**", "journal.jsonl*"), recursive=True):
         with open(journal) as fh:
             for ln in fh:
                 try:
@@ -2154,6 +2168,408 @@ def service_drills(config, cfg, run_dir, root, batch_proc, batch_out, explorer_r
                        "job": status["job"], "pool_interactive": status["pool"]["interactive"],
                        "launches": explorer_launches, "released": released["jobs"]["job-0001"]["status"]},
           "pool_process": batch["pool_process"]})
+    return launches
+
+
+#: The ``fleet`` phase's configuration on the card: the specs of its items
+#: and their pins, when the chaos loses a device, the flaky job's freeze
+#: depth, the pools' leashes and the harness's seed and scenarios.
+FLEET_CARD = {
+    "platform": "default",
+    "big": "2pc:8", "big_pins": EXPECTED_2PC[8],
+    "flaky": "2pc:4", "flaky_pins": EXPECTED_2PC[4], "flaky_depth": 3,
+    "lost_after_s": 14.0, "stall_s": 15.0, "breaker_stall_s": 6.0, "poll_s": 0.5,
+    "chaos_seed": 42, "chaos_jobs": 3, "chaos_scenarios": ["device_lost", "kill"],
+}
+#: ``python -c FLEET_BOOT <mode> <config JSON>``: a two-pool
+#: ``FleetService`` (``pin_devices=True``) in a process of its own, which
+#: imports ``stateright_tpu_torch.service`` and nothing that launches a
+#: kernel. ``failover`` loses the first job's device by chaos mid-job,
+#: ``flaky`` wedges a job on pool 0. One JSON line an item on stdout; a
+#: failed check prints ``fleet_error`` and exits 1.
+FLEET_BOOT = r"""
+import json, os, sys, time
+mode, cfg = sys.argv[1], json.loads(sys.argv[2])
+from stateright_tpu_torch.service import FleetConfig, FleetService, ServiceConfig, read_journal
+
+T0 = time.time()
+DEVICE = cfg["platform"] != "cpu"
+EVENTS = []
+
+
+def out(obj):
+    print(json.dumps(obj, default=str), flush=True)
+
+
+def need(ok, what):
+    if not ok:
+        out({"fleet_error": what})
+        sys.exit(1)
+
+
+def fleet(name, chaos, **kw):
+    pool = dict(platform=cfg["platform"], stall_s=cfg["stall_s"], startup_grace_s=300.0,
+                poll_s=cfg["poll_s"], backoff_s=0.5, probe_auto=False, admission_lint=False,
+                default_max_seconds=900.0)
+    pool.update(kw)
+    f = FleetService(FleetConfig(run_dir=os.path.join(cfg["run_dir"], name), devices=2,
+                                 monitor_interval_s=0.5, pin_devices=True, chaos=chaos,
+                                 pool=ServiceConfig(**pool)))
+    f.log = lambda msg: EVENTS.append((time.time(), msg))
+    return f
+
+
+def worker(job):
+    r = job.result or {}
+    m = r.get("metrics") or {}
+    return {
+        "id": job.id, "spec": job.spec,
+        "pool": job._service._cfg.device, "pool_job": job.id, "status": job.status,
+        "engine": job.engine, "degraded": job.degraded, "platform": r.get("platform"),
+        "device_ordinal": r.get("device_ordinal"), "device_label": r.get("device"),
+        "torch_device": m.get("device"),
+        "generated": r.get("generated"), "unique": r.get("unique"), "max_depth": r.get("max_depth"),
+        "discoveries": r.get("discoveries"), "start_depth": r.get("start_depth"),
+        "resumed_from": r.get("resumed_from"), "first_dispatch_s": r.get("first_dispatch_s"),
+        "worker_seconds": r.get("seconds"), "captures": m.get("graph_captures"),
+        "capture_s": m.get("graph_capture_s"), "peak_memory_bytes": r.get("peak_memory_bytes"),
+        "launches": r.get("launches"),
+        "attempts": [{k: a.get(k) for k in ("rc", "killed", "seconds", "wedged")}
+                     for a in job.attempts],
+    }
+
+
+def exact(fjob, pins):
+    need(fjob.status == "done", f"{fjob.id}: {fjob.status} {fjob.error}")
+    w = worker(fjob.pool_job)
+    need((w["generated"], w["unique"]) == tuple(pins), f"{fjob.id}: counts {w['generated']}")
+    if DEVICE:
+        need(w["platform"] == "cuda" and str(w["torch_device"]).startswith("cuda"),
+             f"{fjob.id}: ran on {w['platform']} {w['torch_device']}")
+        need(w["launches"]["compact"] > 0 and w["launches"]["merge_insert"] > 0,
+             f"{fjob.id}: launches {w['launches']}")
+    return dict(w, fleet_job=fjob.id, migrations=len(fjob.migrations),
+                wall_s=fjob.pool_job.completed_unix_ts - fjob.created_unix_ts)
+
+
+def started_ts(pool, job_id):
+    rs = [r for r in read_journal(pool._journal.path).records
+          if r["event"] == "started" and r["job"] == job_id]
+    return rs[-1]["ts"]
+
+
+def when(word):
+    return [t for t, msg in EVENTS if word in msg]
+
+
+if mode == "failover":
+    f = fleet("failover", f"seed=7;device.lost@n=1:after_s={cfg['lost_after_s']}")
+    victim = f.submit(cfg["big"])
+    sibling = f.submit(cfg["big"])
+    lost, first = victim.device, victim.pool_job
+    need({victim.device, sibling.device} == {0, 1}, f"failover: routes {victim.device} {sibling.device}")
+    need(f.wait_all(timeout=900), "failover: timeout")
+    vl, sl = exact(victim, cfg["big_pins"]), exact(sibling, cfg["big_pins"])
+    need(len(victim.migrations) == 1 and sibling.migrations == [],
+         f"failover: migrations {victim.migrations} {sibling.migrations}")
+    hop = victim.migrations[0]
+    need((hop["from"], hop["to"]) == (lost, 1 - lost), f"failover: hop {hop}")
+    need(bool(hop["seed"]) and hop["seed"].startswith(first.dir + os.sep),
+         f"failover: seed {hop['seed']} is not the victim's rotation")
+    need(vl["resumed_from"] == hop["seed"] and vl["start_depth"] > 0,
+         f"failover: resumed at {vl['start_depth']} from {vl['resumed_from']}")
+    g = f.gauges()
+    need((g["migrations"], g["devices_lost"], g["jobs_evacuated"], g["lost_devices"])
+         == (1, 1, 1, [lost]), f"failover: gauges {g}")
+    evacuated = [r["job"] for r in read_journal(f.pools[lost]._journal.path).records
+                 if r["event"] == "evacuated"]
+    need(evacuated == [first.id], f"failover: evacuated {evacuated}")
+    routing = [(r["event"], r["job"]) for r in
+               read_journal(os.path.join(cfg["run_dir"], "failover", "fleet.jsonl")).records
+               if r["event"] in ("routed", "migrated")]
+    need(routing == [("routed", victim.id), ("routed", sibling.id), ("migrated", victim.id)],
+         f"failover: fleet journal {routing}")
+    lost_at = when("LOST")[0]
+    resumed = started_ts(f.pools[victim.device], victim.pool_job.id)
+    out({"item": "failover", "victim": vl, "sibling": sl, "lost_device": lost,
+         "victim_first": {"pool": first._service._cfg.device, "pool_job": first.id,
+                          "status": first.status, "consumed_s": first.consumed_s},
+         "hop": hop,
+         "lost_after_submit_s": lost_at - victim.created_unix_ts,
+         "loss_to_resumed_dispatch_s": resumed + vl["first_dispatch_s"] - lost_at,
+         "loss_to_migrated_s": hop["unix_ts"] - lost_at,
+         **{k: g[k] for k in ("migrations", "devices_lost", "jobs_evacuated", "routed",
+                              "host_last_resort")}})
+    f.close()
+elif mode == "flaky":
+    f = fleet("breaker", f"seed=3;device.flaky@p=1:depth={cfg['flaky_depth']}",
+              stall_s=cfg["breaker_stall_s"], breaker_k=1)
+    job = f.submit(cfg["flaky"])
+    first = job.pool_job
+    need(job.device == 0 and first.chaos.get("freeze_at_depth") == cfg["flaky_depth"],
+         f"flaky: routed to {job.device} with {first.chaos}")
+    need(job.wait(timeout=900), "flaky: timeout")
+    jl = exact(job, cfg["flaky_pins"])
+    g = f.gauges()
+    need(job.device == 1 and len(job.migrations) == 1, f"flaky: {job.device} {job.migrations}")
+    need(job.pool_job.engine == "xla" and not job.pool_job.degraded, "flaky: degraded")
+    need(first.wedges == 1 and first.attempts[0]["wedged"], f"flaky: {first.attempts}")
+    need((g["devices"]["device-0"]["breaker"]["state"], g["devices"]["device-1"]["breaker"]["state"])
+         == ("open", "closed"), "flaky: breakers")
+    need((g["host_last_resort"], g["device_flakes"], g["migrations"]) == (0, 1, 1), f"flaky: {g}")
+    opened = when("device-0 breaker open")
+    out({"item": "flaky", "job": jl, "first_attempt": worker(first), "hop": job.migrations[0],
+         "open_devices": g["breaker"]["open_devices"],
+         "breaker_open_after_submit_s": opened[0] - job.created_unix_ts if opened else None,
+         "open_to_migrated_s": job.migrations[0]["unix_ts"] - opened[0] if opened else None,
+         **{k: g[k] for k in ("host_last_resort", "device_flakes", "migrations",
+                              "wedge_verdicts", "degraded_jobs")}})
+    f.close()
+import torch
+mods = sorted(m for m in sys.modules if m.startswith("stateright_tpu_torch")
+              and m.rsplit(".", 1)[-1] in ("xla", "graphs", "_cuda", "xla_mux"))
+out({"item": "fleet_process", "cuda_initialized": torch.cuda.is_initialized(),
+     "kernel_modules": mods, "wall_s": time.time() - T0})
+"""
+
+
+def fleet_boot(mode: str, cfg: dict, timeout: float = 900.0) -> dict:
+    """Runs one ``FLEET_BOOT`` fleet process to its end: its items by name."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", FLEET_BOOT, mode, json.dumps(cfg)],
+                          cwd=root, capture_output=True, text=True, timeout=timeout)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    require(proc.returncode == 0 and not any("fleet_error" in ln for ln in lines),
+            f"fleet {mode}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
+    items = {ln["item"]: ln for ln in lines}
+    require(items["fleet_process"]["cuda_initialized"] is False
+            and not items["fleet_process"]["kernel_modules"],
+            f"fleet {mode}: the fleet process touched CUDA: {items['fleet_process']}")
+    return items
+
+
+def kill_named(path: str) -> int:
+    """SIGKILLs every other process whose command line names ``path`` (the
+    harness's serve processes and their workers). Returns how many."""
+    killed = 0
+    for proc in glob.glob("/proc/[0-9]*/cmdline"):
+        pid = int(proc.split("/")[2])
+        try:
+            with open(proc, "rb") as fh:
+                named = path.encode() in fh.read()
+            if named and pid != os.getpid():
+                os.kill(pid, 9)
+                killed += 1
+        except OSError:
+            continue
+    return killed
+
+
+def worker_launches(run_dir: str) -> dict:
+    """The sorted set's kernels launched by the finished workers under
+    ``run_dir`` (each job's ``result.json``: its final attempt)."""
+    total = dict.fromkeys(PATH_KERNELS["sorted"], 0)
+    for path in glob.glob(os.path.join(run_dir, "**", "result.json"), recursive=True):
+        with open(path) as fh:
+            launches = json.load(fh).get("launches") or {}
+        for k in total:
+            total[k] += launches.get(k, 0)
+    return total
+
+
+def fleet_restart(config: dict, run_dir: str, root: str) -> dict:
+    """A two-pool fleet in the harness's serve process, SIGKILLed at the
+    first committed block of either ``2pc:8`` job, restarted over its run
+    dir with the same idempotency keys: the orphans killed by journaled
+    pid, the routes replayed onto the same pools, one ``completed`` record
+    a job, exact counts."""
+    from stateright_tpu_torch.tools import service_chaos as sc
+
+    rd = os.path.join(run_dir, "restart")
+    os.makedirs(rd)
+    schedule = {"seed": 0, "jobs": [{"idem": f"fleet-restart-{i}", "spec": config["big"],
+                                     "delay_s": 0.0, "max_seconds": 900.0} for i in range(2)]}
+    sp = os.path.join(rd, "schedule.json")
+    with open(sp, "w") as fh:
+        json.dump(schedule, fh)
+    argv = [sys.executable, "-m", sc.MODULE, "--serve", "--run-dir", rd, "--schedule", sp,
+            "--max-inflight", "2", "--wait-s", "900", "--fleet", "2",
+            "--platform", config["platform"]]
+    t0 = time.time()
+    with open(os.path.join(rd, "first.out"), "w") as log:
+        first = subprocess.Popen(argv, cwd=root, stdout=log, stderr=subprocess.STDOUT,
+                                 start_new_session=True)
+    deadline = time.monotonic() + 600
+    beat = None
+    while time.monotonic() < deadline and first.poll() is None and beat is None:
+        # A job's first committed block: its first valid rotation.
+        for ck in glob.glob(os.path.join(rd, "device-*", "svc-*", "job-*", "ck.npz")):
+            if latest_valid_checkpoint(ck) is not None:
+                b = heartbeat.read(os.path.join(os.path.dirname(ck), "hb.json")) or {}
+                beat = dict(b, path=os.path.relpath(ck, rd))
+        time.sleep(0.2)
+    alive = first.poll() is None
+    try:
+        os.killpg(first.pid, 9)
+    except OSError:
+        pass
+    first.wait(timeout=60)
+    killed_at = time.time() - t0
+    require(alive and beat is not None, f"fleet restart: no committed block ({beat})")
+    routed = [(r["job"], r["device"], r["pool_job"]) for r in sc.fleet_journal(rd)
+              if r["event"] == "routed"]
+    pids = [r["pid"] for r in sc.journal_history(rd) if r["event"] == "started" and r.get("pid")]
+    t1 = time.time()
+    rc = sc.run_incarnation(rd, sp, max_inflight=2, wait_s=900.0, fleet=2,
+                            platform=config["platform"])
+    require(rc == 0, f"fleet restart: the restarted fleet exited {rc}")
+    restart_wall = time.time() - t1
+    inv = sc.check_invariant(rd, schedule, None)
+    require(inv["ok"], f"fleet restart: {inv['problems']}")
+    with open(os.path.join(rd, "driver_results.json")) as fh:
+        results = json.load(fh)
+    counts = [(j["result"]["generated"], j["result"]["unique"]) for j in results["jobs"].values()]
+    require(counts == [tuple(config["big_pins"])] * 2, f"fleet restart: counts {counts}")
+    require(results["cuda_initialized"] is False, "fleet restart: the fleet process touched CUDA")
+    require(len(routed) == 2 and {d for _, d, _ in routed} == {0, 1}, f"fleet restart: {routed}")
+    fleet_events = sc.fleet_journal(rd)
+    after = [(r["job"], r["device"], r["pool_job"]) for r in fleet_events if r["event"] == "routed"]
+    require(after == routed and not any(r["event"] == "migrated" for r in fleet_events),
+            f"fleet restart: routes {routed} -> {after}")
+    recovered = [r for r in fleet_events if r["event"] == "recovered"]
+    require(recovered and recovered[-1]["attached"] == 2, f"fleet restart: {recovered}")
+    pool_recovery = [{k: r.get(k) for k in ("_device", "jobs_requeued", "orphans_killed",
+                                            "records_replayed")}
+                     for r in sc.journal_history(rd) if r["event"] == "recovered"]
+    survivors = [p for p in pids if os.path.exists(f"/proc/{p}")
+                 and open(f"/proc/{p}/stat").read().split()[2] != "Z"]
+    require(not survivors, f"fleet restart: orphaned workers {survivors} survived")
+    start_depths = []
+    for path in sorted(glob.glob(os.path.join(rd, "device-*", "svc-*", "job-*", "result.json"))):
+        with open(path) as fh:
+            start_depths.append(json.load(fh)["start_depth"])
+    return {"killed_after_s": killed_at, "killed_at": beat, "routes": routed,
+            "start_depths": start_depths,
+            "orphan_pids": pids, "pool_recovery": pool_recovery,
+            "fleet_recovery": {k: recovered[-1].get(k) for k in
+                               ("records_replayed", "routes_recovered", "attached", "orphaned")},
+            "restart_wall_s": restart_wall, "completed_done": len(routed),
+            "turnaround_s": sc.slo_stats(rd)["turnaround_s"], "launches": worker_launches(rd)}
+
+
+def fleet_chaos(config: dict, run_dir: str, root: str, scenario: str) -> dict:
+    """The chaos harness at ``--fleet 2``, one command line for
+    ``scenario`` (the baseline first, as the harness runs it): both
+    ``ok``."""
+    from stateright_tpu_torch.tools import service_chaos as sc
+
+    base = os.path.join(run_dir, f"chaos-{scenario}")
+    line_path = base + ".json"
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", sc.MODULE, "--platform", config["platform"], "--fleet", "2",
+         "--seed", str(config["chaos_seed"]), "--jobs", str(config["chaos_jobs"]),
+         "--scenario", scenario, "--base-dir", base, "--out", line_path],
+        cwd=root, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    line = json.loads(lines[-1]) if lines else {}
+    require(proc.returncode == 0 and line.get("ok") is True,
+            f"fleet chaos {scenario}: exit {proc.returncode} {line.get('scenarios')}\n"
+            f"{proc.stderr[-4000:]}")
+    reps = line["scenarios"]
+    require(list(reps) == ["baseline", scenario], f"fleet chaos: {list(reps)}")
+    if scenario == "device_lost":
+        require(reps[scenario]["fleet"]["migrations"] >= 1, "fleet chaos: no migration")
+    return {
+        "wall_s": time.time() - t0, "specs": line["specs"],
+        **{name: {k: rep.get(k) for k in ("ok", "problems", "faults", "restarts", "elapsed_s",
+                                          "turnaround_s", "admission_latency_ms", "journal")}
+                  | {"migrations": rep["fleet"]["migrations"],
+                     "per_device": rep["fleet"]["per_device"]}
+           for name, rep in reps.items()},
+        "launches": worker_launches(base),
+    }
+
+
+def fleet_phase(config: dict = FLEET_CARD) -> dict:
+    """The checker service's fleet on the card (``FleetService``, two pools
+    of one card, ``pin_devices=True``): a lost device's ``2pc:8`` job
+    resumed on the other pool from its own rotation beside an untouched
+    sibling; a fleet SIGKILLed and restarted into one completion a job; the
+    chaos harness's ``device_lost`` and ``kill`` scenarios; a flaky pool's
+    wedge migrated, not degraded. The fleet processes never touch CUDA.
+    Returns the launches by path. A config with ``platform="cpu"``
+    rehearses the phase on the CPU (no launches)."""
+    t0 = time.perf_counter()
+    on_card = config["platform"] != "cpu"
+    run_dir = os.path.join(CKPT_DIR, "fleet")
+    os.makedirs(run_dir)
+    cfg = dict(config, run_dir=run_dir)
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        # 1. Alone, so its walls are the card's with two pools and no more.
+        failover = fleet_boot("failover", cfg)["failover"]
+        t1 = time.perf_counter()
+        # 2-4 side by side, each of the harness's scenarios in a command
+        # line of its own.
+        with ThreadPoolExecutor(2 + len(config["chaos_scenarios"])) as ex:
+            restart_f = ex.submit(fleet_restart, config, run_dir, root)
+            flaky_f = ex.submit(fleet_boot, "flaky", cfg)
+            chaos_f = {name: ex.submit(fleet_chaos, config, run_dir, root, name)
+                       for name in config["chaos_scenarios"]}
+            restart, flaky = restart_f.result(), flaky_f.result()["flaky"]
+            chaos = {name: f.result() for name, f in chaos_f.items()}
+    finally:
+        # A failed check must leave no fleet, serve process or worker running.
+        kill_service_workers(run_dir)
+        kill_named(run_dir)
+    models = {spec: resolve_spec(spec)[0] for spec in (config["big"], config["flaky"])}
+    service_jobs_checked([[failover["victim"], failover["sibling"]], [flaky["job"]]], models)
+    n_cards = torch.cuda.device_count() if on_card else 0
+    for w in (failover["victim"], failover["sibling"], flaky["job"]):
+        ordinal = int(w["pool"].rsplit("-", 1)[1])
+        require(w["device_ordinal"] == ordinal, f"fleet: {w['pool']} ran --device {w['device_ordinal']}")
+        if on_card:
+            # An ordinal the machine lacks falls back to the default card,
+            # with no label (the reference's fallback).
+            want = f"cuda:{ordinal}" if ordinal < n_cards else None
+            require(w["device_label"] == want, f"fleet: {w['pool']} label {w['device_label']}")
+    launches = {
+        "fleet_failover": path_launches([failover["victim"], failover["sibling"]]),
+        "fleet_restart": restart["launches"],
+        "fleet_chaos": {k: sum(s["launches"][k] for s in chaos.values())
+                        for k in PATH_KERNELS["sorted"]},
+        "fleet_breaker": path_launches([flaky["job"]]),
+    }
+    for path, counts in launches.items():
+        require(all(n > 0 for n in counts.values()) or not on_card, f"fleet: {path} launched {counts}")
+
+    def brief(w):
+        return {k: w[k] for k in ("pool", "pool_job", "device_ordinal", "device_label", "torch_device",
+                                  "generated", "unique", "max_depth", "start_depth", "first_dispatch_s",
+                                  "worker_seconds", "captures", "capture_s", "peak_memory_bytes",
+                                  "launches", "attempts", "engine", "platform") if k in w} | (
+            {"wall_s": w["wall_s"], "migrations": w["migrations"]} if "wall_s" in w else {})
+
+    emit({"phase": "fleet", "wall_s": time.perf_counter() - t0,
+          "failover_wall_s": t1 - t0, "cards": n_cards,
+          "fleet_failover_rm8": {
+              "victim": brief(failover["victim"]), "sibling": brief(failover["sibling"]),
+              "victim_first": failover["victim_first"],
+              "lost_device": failover["lost_device"], "lost_after_s": config["lost_after_s"],
+              "hop": {k: failover["hop"][k] for k in ("from", "to", "reason", "requeues", "seed")},
+              **{k: failover[k] for k in ("lost_after_submit_s", "loss_to_resumed_dispatch_s",
+                                          "loss_to_migrated_s", "migrations", "devices_lost",
+                                          "jobs_evacuated", "routed", "host_last_resort")}},
+          "fleet_restart_rm8": restart,
+          "fleet_chaos": chaos,
+          "fleet_breaker": {"job": brief(flaky["job"]), "first_attempt": brief(flaky["first_attempt"]),
+                            "hop": {k: flaky["hop"][k] for k in ("from", "to", "reason")},
+                            **{k: flaky[k] for k in ("open_devices", "breaker_open_after_submit_s",
+                                                     "open_to_migrated_s", "host_last_resort",
+                                                     "device_flakes", "migrations", "wedge_verdicts",
+                                                     "degraded_jobs")}},
+          "launches": launches})
     return launches
 
 
@@ -4078,6 +4494,7 @@ def run_phases() -> int:
     # The command lines first, while this process holds little of the card.
     cli_launches = cli_phase()
     service_launches = service_phase()
+    fleet_launches = fleet_phase()
     small_phase()
     model, checker, launches, ladder = main_path_phase()
     new_paths = {
@@ -4085,6 +4502,7 @@ def run_phases() -> int:
         "autockpt_rm8": autockpt_rm8_phase(model),
         **cli_launches,
         **service_launches,
+        **fleet_launches,
         **obs_phase(),
     }
     repeat_and_profile_phase(model)

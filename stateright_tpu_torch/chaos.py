@@ -36,10 +36,19 @@ Injection points of the port (each is one hook call in the named owner):
   ``depth``, ``once``).
 - ``lint.timeout`` -- ``CheckerService._admission_verdict``: the admission
   check's subprocess "times out" (the fail-open path, ``lint_errors``).
-
-The reference's ``tenant.storm``, ``device.lost`` and ``device.flaky`` are
-consumed by its fleet and its chaos tool, which the port does not have yet
-(ROADMAP A10c-2); a plan naming them parses here and fires nowhere.
+- ``tenant.storm`` -- consumed by ``tools/service_chaos.py``'s serve loop:
+  on the N-th scheduled submission, burst ``rate`` (default 5) extra
+  submissions of one tenant (params ``tenant``, default ``storm``;
+  ``class``, default ``best_effort``; ``rate``) through the live service,
+  under idempotency keys ``storm-<seed>-<i>`` so a restarted incarnation's
+  storm dedupes.
+- ``device.lost`` / ``device.flaky`` -- consumed by ``FleetService.submit``
+  (``service/fleet.py``). ``device.lost`` (params ``device``, default the
+  device just routed to, and ``after_s``, default 1) counts successful
+  placements and declares a whole device dead after the delay: its pool's
+  workers are killed and its jobs migrate to healthy siblings.
+  ``device.flaky`` (params ``depth``, ``once``) counts submission attempts
+  and gives the routed job a one-shot heartbeat freeze on its device.
 
 ``STPU_CHAOS`` rides process boundaries by plain environment inheritance:
 the service exports its config's spec into worker environments, so a

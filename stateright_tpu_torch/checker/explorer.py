@@ -27,7 +27,12 @@ is open) and release it at ``close``; ``/.status`` then carries ``job``,
 ``degraded`` and ``pool``, ``/.pool`` the service's status,
 ``/.jobs/{id}/trace.json`` and ``/.trace.json`` the job's and the pool's
 Chrome traces, ``/.jobs/{id}/metrics.json`` a batch job's series, and
-``/.metrics`` the pool gauges and every job's snapshot. Without a service
+``/.metrics`` the pool gauges and every job's snapshot. A
+:class:`~stateright_tpu_torch.service.FleetService` serves wherever a
+``CheckerService`` does: the session lands on the alive pool with the
+fewest sessions under the fleet-wide cap, and ``/.metrics`` renders each
+pool's rows labelled ``device="device-K"`` beside the fleet's own
+``stpu_fleet_*`` families. Without a service
 (``service=None``, the default: the port creates no pool of its own) the
 app is the reference's service-less app: those keys are absent and those
 routes answer 404.
@@ -310,13 +315,20 @@ class ExplorerApp:
         """``GET /.metrics``: the OpenMetrics exposition of this session,
         labeled with its pool job id (``job="interactive"`` without a
         service), plus the pool gauges and every other pool job's snapshot.
-        Its counters equal the checkers' ``metrics()``."""
+        Its counters equal the checkers' ``metrics()``. A fleet's pool
+        families render only as rows labelled ``device="device-K"``, its
+        own state under ``stpu_fleet_*``."""
         own = self._job.id if self._job is not None else INTERACTIVE
         with self._locked():
             samples = [promexport.build_info_sample()]
             samples += promexport.engine_samples(self._checker.metrics(), {"job": own})
         if self._service is not None:
-            samples += promexport.pool_samples(self._service.gauges())
+            gauges = self._service.gauges()
+            devices = gauges.get("devices") or {}
+            if devices:
+                samples += _fleet_samples(gauges, devices)
+            else:
+                samples += promexport.pool_samples(gauges)
             for job in self._service.jobs():
                 if self._job is not None and job.id == self._job.id:
                     continue  # this session's checker is rendered above
@@ -406,6 +418,23 @@ class ExplorerApp:
         return view
 
 
+def _fleet_samples(gauges: dict, devices: dict) -> list:
+    """A fleet's ``/.metrics`` rows: the pool families only as rows
+    labelled ``device`` (an unlabelled aggregate repeating them would
+    double a PromQL ``sum``), and fleet-scoped state -- the fleet counters
+    (a dedup or rejection happens before any pool sees it), the fleet
+    breaker and ``fleet.jsonl`` -- under ``stpu_fleet_*``."""
+    from ..service.fleet import FLEET_COUNTERS
+
+    per_device = set().union(*(d.keys() for d in devices.values()))
+    own = {k: v for k, v in gauges.items()
+           if k not in per_device or k in ("breaker", "journal") or k in FLEET_COUNTERS}
+    samples = promexport.pool_samples(own, prefix="stpu_fleet")
+    for device, dev_gauges in devices.items():
+        samples += promexport.pool_samples(dev_gauges, {"device": device})
+    return samples
+
+
 def _pretty(state: Any) -> str:
     """A multi-line state rendering (the analogue of Rust's ``{:#?}``,
     explorer.rs:49)."""
@@ -485,7 +514,8 @@ def make_app(builder, engine: str = "auto", service=None, **spawn_kwargs):
     :func:`serve` for ``engine``; ``spawn_kwargs`` reach the GPU checker
     (``device``, capacities, ``dedup``). Returns ``(app, checker)``.
 
-    With ``service`` the session is one of the pool's jobs: the session
+    With ``service`` (a ``CheckerService`` or a ``FleetService``) the
+    session is one of the pool's jobs: the session
     cap is checked BEFORE the checker is built (the GPU backend allocates
     on the card, the spend the cap exists to gate; ``AdmissionError`` past
     ``max_sessions``), the checker is registered as an interactive job, and

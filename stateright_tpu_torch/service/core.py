@@ -53,8 +53,8 @@ live in one process, so no program cache crosses processes and
 ``compile_cache`` keeps its field and environment export with no other
 meaning; compile-on-admit (``warm_compiles``) is a background build of the
 kernel libraries (``ops/_cuda.py``); the default probe starts the card.
-The reference's fleet (``breaker_mode="halt"``, ``evacuate``, the breaker
-listener) keeps its hooks here for ROADMAP A10c-2.
+The fleet (``service/fleet.py``) drives ``breaker_mode="halt"``,
+``evacuate``, the breaker listener and ``submit(spent_s=, resume_from=)``.
 """
 
 from __future__ import annotations

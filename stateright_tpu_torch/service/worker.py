@@ -81,10 +81,9 @@ def _resolve_device(args):
         raise SystemExit(f"--platform must be 'default' or 'cpu', got {args.platform!r}")
     device = resolve_device(None)
     label = None
-    if args.device is not None:
-        if 0 <= args.device < torch.cuda.device_count():
-            device = torch.device("cuda", args.device)
-            label = str(device)
+    if args.device is not None and 0 <= args.device < torch.cuda.device_count():
+        device = torch.device("cuda", args.device)
+        label = str(device)
         torch.cuda.set_device(device)
     return device, label
 

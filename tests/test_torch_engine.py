@@ -190,6 +190,15 @@ def test_port_runs_no_script_of_the_reference_package(path):
     assert not bad, f"{path.name} names {bad}"
 
 
+def test_walks_cover_the_fleet_and_the_tools():
+    """The two walks above glob the whole package: the fleet and the
+    port's tools (the chaos harness) are among the files they check."""
+    walked = {str(p.relative_to(ROOT)) for p in (ROOT / "stateright_tpu_torch").rglob("*.py")}
+    assert {"stateright_tpu_torch/service/fleet.py",
+            "stateright_tpu_torch/tools/__init__.py",
+            "stateright_tpu_torch/tools/service_chaos.py"} <= walked
+
+
 class _SkipBase:
     """0 -> +1 or +2 (clamped at 4, terminal): "eventually 3" has the
     counterexample 0 -> 2 -> 4, found by the terminal pass."""
