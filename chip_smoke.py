@@ -117,7 +117,8 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    checkpoint saved on the CPU and resumed on the card, and the other way,
    refused without symmetry;
 12. runs every model's ``check`` command line (``cli``) in a fresh
-   process each, the module's ``__main__`` as ``python -m`` runs it, with
+   process each, all four at once, the module's ``__main__`` as
+   ``python -m`` runs it, with
    the kernels' launch counters printed at exit: ``two_phase_commit check
    8``, ``paxos check 2``, ``single_copy_register check 3`` and
    ``linearizable_register check 2 ordered``, each exiting 0 with its
@@ -136,14 +137,16 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    .checker(), service=pool)`` in this process; each job's wall from
    submit, its worker's seconds to its first dispatch, captures, peak
    memory and launches printed, every discovery re-executed; the
-   checker service's fleet (``fleet``, right after ``service``), two pools
+   checker service's fleet (``fleet``, started once the service's items
+   1-3 are done, beside its later items), two pools
    of this card behind one ``FleetService`` with ``pin_devices=True``, its
    processes leaving CUDA uninitialised: two ``2pc:8`` jobs through
    ``device.lost`` (the victim evacuated and resumed on the other pool
    from its own rotation, both exact, the sibling untouched, the lost
    pool's journal holding the evacuation and ``fleet.jsonl`` the route and
    then the migration; pool 1's worker recording the fallback of an
-   ordinal the machine lacks), alone; then side by side a fleet SIGKILLed
+   ordinal the machine lacks), the device lost at the victim's first
+   committed rotation; beside it a fleet SIGKILLed
    at a job's first committed rotation and restarted over its run dir
    (orphans killed, routes replayed, one completion a job), the chaos
    harness's ``device_lost`` and ``kill`` scenarios at ``--fleet 2`` (each
@@ -189,9 +192,16 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    and at D = 4, and a single-chip file resumed at D = 8; and
    (``shard_kernels``) every kernel call of the widest sharded level held
    against its plain version, the widest shard's timed;
-15. prints the ``{"kernels": [...]}`` line (launches summed over every
+15. holds the reference's other compaction lowerings, the kernel's
+   yardsticks (``compaction_ops``; the engine does not run them):
+   ``compact_gather``, ``compact_sort`` and ``compact_bsearch`` against
+   the kernel and its plain version, exactly, at the rm=8 grid and
+   frontier, the Paxos 3c/3s grid and frontier and the ABD 3c/2s frontier,
+   each timed beside the kernel (with the kernel table's bound and each
+   call's peak memory);
+16. prints the ``{"kernels": [...]}`` line (launches summed over every
    main-path run: rm=8, Paxos 3c/3s, single-copy-register, the
-   host-verified runs and the paths of items 9 to 14, the service's and
+   host-verified runs and the paths of items 9 to 15, the service's and
    the fleet's from their workers' ``--out`` files, each also by path)
    and, last, the device line.
 
@@ -211,6 +221,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -247,7 +258,7 @@ from stateright_tpu_torch.core import Expectation, Property
 from stateright_tpu_torch.models.two_phase_commit import PackedTwoPhaseSys, TwoPhaseSys
 from stateright_tpu_torch.obs import heartbeat, promexport
 from stateright_tpu_torch.ops import _cuda, deltaset, hashset, sortedset
-from stateright_tpu_torch.ops.compact import compact, compact_plain
+from stateright_tpu_torch.ops.compact import LOWERINGS, compact, compact_plain
 from stateright_tpu_torch.ops.merge import merge_insert, merge_insert_plain
 from stateright_tpu_torch.ops.words import DTYPE, PAD_KEY, fold_key, from_u32, to_u32
 from stateright_tpu_torch.parallel import default_mesh, owner_bits
@@ -316,10 +327,15 @@ MERGE_SYMBOL = "merge_kernel"
 T0 = time.perf_counter()
 
 
+#: One line at a time on stdout: the fleet phase emits from a thread.
+EMIT_LOCK = threading.Lock()
+
+
 def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - T0}
-    print(json.dumps(obj), flush=True)
+    with EMIT_LOCK:
+        print(json.dumps(obj), flush=True)
 
 
 def require(ok: bool, what: str) -> None:
@@ -1216,6 +1232,36 @@ def merge_phase(rng, c_main: int, m_main: int) -> dict:
     return {"max_abs_err": max(v["max_abs_err"] for v in out.values()), **timing}
 
 
+def _wide_grid_case(shapes, gen):
+    """A wide model's grid compaction at its widest bucket's densest level
+    (``shapes`` of its run), made on the card from ``gen``: ``(grid [F,
+    A, W], mask, lanes, cap)``, the lanes the grid's W planes (strided
+    views) and three per-state lanes broadcast over A, as the engine hands
+    them over."""
+    A, W, lv = shapes["A"], shapes["W"], shapes["levels"]
+    f = max(r["bucket"] for r in lv)
+    top = max((r for r in lv if r["bucket"] == f), key=lambda r: r["generated"])
+    grid = torch.randint(0, 2**32, (f, A, W), dtype=DTYPE, device="cuda", generator=gen)
+    per_state = torch.randint(0, 2**32, (3, f), dtype=DTYPE, device="cuda", generator=gen)
+    live = torch.arange(f, device="cuda")[:, None] < top["frontier"]
+    density = top["generated"] / (top["frontier"] * A)
+    mask = (torch.rand((f, A), device="cuda", generator=gen) < density) & live
+    lanes = [grid[:, :, w] for w in range(W)] + [p[:, None].expand(f, A) for p in per_state]
+    return grid, mask, lanes, top["cand_cap"]
+
+
+def _wide_frontier_case(shapes, gen, rng):
+    """A wide model's frontier compaction at its level with the most new
+    states: ``(is_new mask over the candidate buffer, W + 1 lanes, that
+    level)``, into the level's bucket."""
+    W = shapes["W"]
+    wide = max(shapes["levels"], key=lambda r: r["unique"])
+    rows = torch.randint(0, 2**32, (W + 1, wide["cand_cap"]), dtype=DTYPE, device="cuda", generator=gen)
+    flags = np.zeros(wide["cand_cap"], bool)
+    flags[rng.choice(wide["generated"], wide["unique"], replace=False)] = True
+    return torch.from_numpy(flags).cuda(), list(rows), wide
+
+
 def model_kernel_phase(shapes, rng, tag: str = "paxos3") -> dict:
     """Both kernels against their plain versions, exactly, at the shapes of
     a wide model's run (``shapes``; 20 launches each), and timed there: the
@@ -1227,15 +1273,8 @@ def model_kernel_phase(shapes, rng, tag: str = "paxos3") -> dict:
     card from a seed. ``tag`` names the phase and its cases."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     A, W, lv = shapes["A"], shapes["W"], shapes["levels"]
-    f = max(r["bucket"] for r in lv)
-    top = max((r for r in lv if r["bucket"] == f), key=lambda r: r["generated"])
-    grid = torch.randint(0, 2**32, (f, A, W), dtype=DTYPE, device="cuda", generator=gen)
-    per_state = torch.randint(0, 2**32, (3, f), dtype=DTYPE, device="cuda", generator=gen)
-    live = torch.arange(f, device="cuda")[:, None] < top["frontier"]
-    density = top["generated"] / (top["frontier"] * A)
-    mask = (torch.rand((f, A), device="cuda", generator=gen) < density) & live
-    lanes = [grid[:, :, w] for w in range(W)] + [p[:, None].expand(f, A) for p in per_state]
-    cap = top["cand_cap"]
+    grid, mask, lanes, cap = _wide_grid_case(shapes, gen)
+    f = grid.shape[0]
     out = {"grid": check_compact(f"{tag}_grid", mask, lanes, cap, reps=20)}
     n = out["grid"]["n_valid"]
     flat = mask.reshape(-1)
@@ -1246,15 +1285,11 @@ def model_kernel_phase(shapes, rng, tag: str = "paxos3") -> dict:
     )
     grid_timing["library_call"] = "grid.view(F*A, W)[mask]: the W grid words only"
     grid_timing["sector_floor_ms"] = bound_ms(sector_bytes(mask, lanes, cap))
-    del grid, per_state, lanes, mask, flat
-    wide = max(lv, key=lambda r: r["unique"])
-    rows = torch.randint(0, 2**32, (W + 1, wide["cand_cap"]), dtype=DTYPE, device="cuda", generator=gen)
-    flags = np.zeros(wide["cand_cap"], bool)
-    flags[rng.choice(wide["generated"], wide["unique"], replace=False)] = True
-    fmask, flanes = torch.from_numpy(flags).cuda(), list(rows)
+    del grid, lanes, mask, flat
+    fmask, flanes, wide = _wide_frontier_case(shapes, gen, rng)
     out["frontier"] = check_compact(f"{tag}_frontier", fmask, flanes, wide["bucket"], reps=20)
     frontier_timing = time_compact(fmask, flanes, wide["bucket"], out["frontier"]["n_valid"], W + 1, 0)
-    del rows, fmask, flanes
+    del fmask, flanes
     c_tab, m_cand = shapes["table_capacity"], max(r["cand_cap"] for r in lv)
     table, batch = _merge_case(rng, c_tab, shapes["unique"], m_cand)
     out["merge"] = check_merge(f"{tag}_table", table, batch, reps=20)
@@ -1719,21 +1754,27 @@ DONE_LINE = r"^Done\. states=(\d+), unique=(\d+), depth=(\d+), sec=(\d+)$"
 
 def cli_phase() -> dict:
     """Each model's ``check`` command line in a fresh process on the card,
-    one after another: exit 0, the pinned counts, the kernels of the path
+    all at once: exit 0, the pinned counts, the kernels of the path
     launched; the wall from process start (torch's import, the card's
-    start and a cold check)."""
+    start and a cold check, beside the other three)."""
     import re
 
     root = os.path.dirname(os.path.abspath(__file__))
     lines, launches = {}, {}
-    for module, args, pins in CLI_COMMANDS:
-        name = f"{module} {' '.join(args)}"
+
+    def run(module, args):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-c", CLI_BOOT, f"stateright_tpu_torch.models.{module}", *args],
             cwd=root, capture_output=True, text=True, timeout=600,
         )
-        wall = time.perf_counter() - t0
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(CLI_COMMANDS)) as ex:
+        runs = [ex.submit(run, module, args) for module, args, _ in CLI_COMMANDS]
+        done_runs = [r.result() for r in runs]
+    for (module, args, pins), (proc, wall) in zip(CLI_COMMANDS, done_runs):
+        name = f"{module} {' '.join(args)}"
         out = proc.stdout.splitlines()
         require(proc.returncode == 0,
                 f"cli {name}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
@@ -2173,23 +2214,28 @@ def service_drills(config, cfg, run_dir, root, batch_proc, batch_out, explorer_r
 
 #: The ``fleet`` phase's configuration on the card: the specs of its items
 #: and their pins, when the chaos loses a device, the flaky job's freeze
-#: depth, the pools' leashes and the harness's seed and scenarios.
+#: depth, the pools' leashes and the harness's seed and scenarios. The
+#: failover loses the victim's device at its first committed rotation (an
+#: event, not a delay: how soon a worker reaches its first dispatch
+#: depends on the host).
 FLEET_CARD = {
     "platform": "default",
     "big": "2pc:8", "big_pins": EXPECTED_2PC[8],
     "flaky": "2pc:4", "flaky_pins": EXPECTED_2PC[4], "flaky_depth": 3,
-    "lost_after_s": 14.0, "stall_s": 15.0, "breaker_stall_s": 6.0, "poll_s": 0.5,
+    "stall_s": 15.0, "breaker_stall_s": 6.0, "poll_s": 0.5,
     "chaos_seed": 42, "chaos_jobs": 3, "chaos_scenarios": ["device_lost", "kill"],
 }
 #: ``python -c FLEET_BOOT <mode> <config JSON>``: a two-pool
 #: ``FleetService`` (``pin_devices=True``) in a process of its own, which
 #: imports ``stateright_tpu_torch.service`` and nothing that launches a
-#: kernel. ``failover`` loses the first job's device by chaos mid-job,
+#: kernel. ``failover`` loses the first job's device (``device_lost``) at
+#: that job's first committed rotation,
 #: ``flaky`` wedges a job on pool 0. One JSON line an item on stdout; a
 #: failed check prints ``fleet_error`` and exits 1.
 FLEET_BOOT = r"""
 import json, os, sys, time
 mode, cfg = sys.argv[1], json.loads(sys.argv[2])
+from stateright_tpu_torch.checkpoint import latest_valid_checkpoint
 from stateright_tpu_torch.service import FleetConfig, FleetService, ServiceConfig, read_journal
 
 T0 = time.time()
@@ -2263,11 +2309,17 @@ def when(word):
 
 
 if mode == "failover":
-    f = fleet("failover", f"seed=7;device.lost@n=1:after_s={cfg['lost_after_s']}")
+    f = fleet("failover", None)
     victim = f.submit(cfg["big"])
     sibling = f.submit(cfg["big"])
     lost, first = victim.device, victim.pool_job
     need({victim.device, sibling.device} == {0, 1}, f"failover: routes {victim.device} {sibling.device}")
+    deadline = time.time() + 600
+    while not (first.dir and latest_valid_checkpoint(first.checkpoint_path)):
+        need(time.time() < deadline and not victim.done,
+             f"failover: the victim ended as {first.status} with no rotation")
+        time.sleep(0.1)
+    f.device_lost(lost)
     need(f.wait_all(timeout=900), "failover: timeout")
     vl, sl = exact(victim, cfg["big_pins"]), exact(sibling, cfg["big_pins"])
     need(len(victim.migrations) == 1 and sibling.migrations == [],
@@ -2506,17 +2558,21 @@ def fleet_phase(config: dict = FLEET_CARD) -> dict:
     os.makedirs(run_dir)
     cfg = dict(config, run_dir=run_dir)
     root = os.path.dirname(os.path.abspath(__file__))
+    def timed_failover():
+        items = fleet_boot("failover", cfg)
+        return items["failover"], time.perf_counter() - t0
+
     try:
-        # 1. Alone, so its walls are the card's with two pools and no more.
-        failover = fleet_boot("failover", cfg)["failover"]
-        t1 = time.perf_counter()
-        # 2-4 side by side, each of the harness's scenarios in a command
-        # line of its own.
-        with ThreadPoolExecutor(2 + len(config["chaos_scenarios"])) as ex:
+        # Side by side, each of the harness's scenarios in a command line
+        # of its own; the failover's loss waits for its victim's first
+        # rotation, however slow the start.
+        with ThreadPoolExecutor(3 + len(config["chaos_scenarios"])) as ex:
+            failover_f = ex.submit(timed_failover)
             restart_f = ex.submit(fleet_restart, config, run_dir, root)
             flaky_f = ex.submit(fleet_boot, "flaky", cfg)
             chaos_f = {name: ex.submit(fleet_chaos, config, run_dir, root, name)
                        for name in config["chaos_scenarios"]}
+            failover, failover_wall = failover_f.result()
             restart, flaky = restart_f.result(), flaky_f.result()["flaky"]
             chaos = {name: f.result() for name, f in chaos_f.items()}
     finally:
@@ -2552,11 +2608,11 @@ def fleet_phase(config: dict = FLEET_CARD) -> dict:
             {"wall_s": w["wall_s"], "migrations": w["migrations"]} if "wall_s" in w else {})
 
     emit({"phase": "fleet", "wall_s": time.perf_counter() - t0,
-          "failover_wall_s": t1 - t0, "cards": n_cards,
+          "failover_wall_s": failover_wall, "cards": n_cards,
           "fleet_failover_rm8": {
               "victim": brief(failover["victim"]), "sibling": brief(failover["sibling"]),
               "victim_first": failover["victim_first"],
-              "lost_device": failover["lost_device"], "lost_after_s": config["lost_after_s"],
+              "lost_device": failover["lost_device"],
               "hop": {k: failover["hop"][k] for k in ("from", "to", "reason", "requeues", "seed")},
               **{k: failover[k] for k in ("lost_after_submit_s", "loss_to_resumed_dispatch_s",
                                           "loss_to_migrated_s", "migrations", "devices_lost",
@@ -2571,6 +2627,29 @@ def fleet_phase(config: dict = FLEET_CARD) -> dict:
                                                      "degraded_jobs")}},
           "launches": launches})
     return launches
+
+
+def service_and_fleet_phases():
+    """``service``, and ``fleet`` beside the service's items 4-6 once its
+    items 1-3 (whose walls are the phase's measurements, and whose wedge
+    verdict has a one-second margin) are done. Returns both phases'
+    launches by path."""
+    marker = os.path.join(CKPT_DIR, "service", "items-1-3.done")
+    service_over = threading.Event()
+
+    def fleet_after_items_1_3():
+        while not (os.path.exists(marker) or service_over.is_set()):
+            time.sleep(0.5)
+        # A service that failed before its items 1-3 ended starts no fleet.
+        return fleet_phase() if os.path.exists(marker) else None
+
+    with ThreadPoolExecutor(1) as ex:
+        fleet_f = ex.submit(fleet_after_items_1_3)
+        try:
+            service_launches = service_phase()
+        finally:
+            service_over.set()
+        return service_launches, fleet_f.result()
 
 
 def obs_paths(tag: str) -> dict:
@@ -4476,6 +4555,91 @@ def sharded_phase(main_levels: list, main_depth: int):
     return launches, kernels
 
 
+
+
+def call_peak_gib(fn) -> float:
+    """Device memory one call of ``fn`` takes above what was allocated
+    before it (its output included), in GiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 2**30
+
+
+def lowering_case(name: str, mask, lanes, cap: int, read_words: int, per_row_bytes: int,
+                  reps: int) -> dict:
+    """Each tensor lowering at one kernel-table shape: equal to
+    ``compact_plain`` in every column (zeros past the survivors too) and to
+    the kernel in the survivors' columns, exactly; then each timed with
+    ``timed_ms`` (the device work alone, ``reps`` calls) beside the kernel
+    in the same call, with the table's bound and each call's peak memory."""
+    want, n_plain = compact_plain(mask, lanes, cap)
+    kernel_out, n_kernel = compact(mask, lanes, cap)
+    n = int(n_plain)
+    k = min(n, cap)
+    require(int(n_kernel) == n, f"{name}: the kernel's n_valid")
+    line = {"M": mask.numel(), "P": len(lanes), "cap": cap, "n_valid": n,
+            "bound_ms": bound_ms(compact_bytes(mask, len(lanes), n, cap, read_words,
+                                               per_row_bytes))}
+    for low, fn in LOWERINGS.items():
+        got, n_got = fn(mask, lanes, cap)
+        require(int(n_got) == n, f"{name} {low}: n_valid {int(n_got)} against {n}")
+        err = int((got - want).abs().max()) if cap else 0
+        if k:
+            err = max(err, int((got[:, :k] - kernel_out[:, :k]).abs().max()))
+        require(err == 0, f"{name} {low}: differs from the plain version or the kernel")
+        del got
+        line[low] = {"max_abs_err": err}
+    del want, kernel_out
+    for low, fn in {"pallas": compact, **LOWERINGS}.items():
+        line.setdefault(low, {}).update({
+            "ms": timed_ms(lambda: fn(mask, lanes, cap), reps=reps, queued=True),
+            "peak_gib": call_peak_gib(lambda: fn(mask, lanes, cap)),
+        })
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def compaction_ops_phase(main_checker, shapes, abd_shapes) -> dict:
+    """``compaction_ops``: the tensor lowerings against the kernel and its
+    plain version at the kernel table's shapes, timed beside the kernel:
+    the rm=8 grid (P = 5) and frontier (P = 3), the Paxos 3c/3s grid (P =
+    49) and frontier (P = 47), the ABD 3c/2s frontier (P = 40)."""
+    rng = np.random.default_rng(2027)
+    lv = main_checker.level_log
+    top = max(lv, key=lambda r: r["bucket"])
+    f, a = top["bucket"], main_checker.model().max_actions
+    density = max(r["generated"] / (r["bucket"] * a) for r in lv if r["bucket"] == f)
+    cases = {}
+    mask, lanes, cap = _grid_case(rng, f, a, density, top["cand_cap"])
+    cases["rm8_grid"] = lowering_case("rm8_grid", mask, lanes, cap, 2, 3 * f * 8, reps=20)
+    mask, lanes, cap = _frontier_case(rng, max(lv, key=lambda r: r["unique"]))
+    cases["rm8_frontier"] = lowering_case("rm8_frontier", mask, lanes, cap, 3, 0, reps=20)
+    del mask, lanes
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    W = shapes["W"]
+    grid, mask, lanes, cap = _wide_grid_case(shapes, gen)
+    cases["paxos3_grid"] = lowering_case("paxos3_grid", mask, lanes, cap, W,
+                                         3 * grid.shape[0] * 8, reps=3)
+    del grid, mask, lanes
+    mask, lanes, wide = _wide_frontier_case(shapes, gen, rng)
+    cases["paxos3_frontier"] = lowering_case("paxos3_frontier", mask, lanes, wide["bucket"],
+                                             W + 1, 0, reps=10)
+    mask, lanes, wide = _wide_frontier_case(abd_shapes, gen, rng)
+    cases["abd3_frontier"] = lowering_case("abd3_frontier", mask, lanes, wide["bucket"],
+                                           abd_shapes["W"] + 1, 0, reps=20)
+    del mask, lanes
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "compaction_ops", "cases": cases})
+    return cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4493,8 +4657,7 @@ def run_phases() -> int:
     device_phase()
     # The command lines first, while this process holds little of the card.
     cli_launches = cli_phase()
-    service_launches = service_phase()
-    fleet_launches = fleet_phase()
+    service_launches, fleet_launches = service_and_fleet_phases()
     small_phase()
     model, checker, launches, ladder = main_path_phase()
     new_paths = {
@@ -4541,6 +4704,7 @@ def run_phases() -> int:
     rk = rung_kernel_phase(checker, shapes, hv_shapes, rng)
     ak = model_kernel_phase(abd_shapes, rng, tag="abd3")
     sk = model_kernel_phase(sym_shapes, rng, tag="sym14")
+    lowering_ops = compaction_ops_phase(checker, shapes, abd_shapes)
     kernels = []
     for name, source, replaces, main in (
         ("compact", "compact.cu", "stateright_tpu/ops/pallas_compact.py:229", b1),
@@ -4567,6 +4731,7 @@ def run_phases() -> int:
             "max_abs_err": max(e["max_abs_err"] for e in errs),
             "paxos3": px[name], "ladder_and_hv_shapes": new_shapes, "abd3": ak[name],
             "sym14": sk[name], "delta9": delta, "click": ck[name],
+            **({"lowerings": lowering_ops} if name == "compact" else {}),
             "sharded": without_ops(shk[name]) if name == "merge_insert" else {
                 kind: without_ops(line) for kind, line in shk[name].items()},
         })

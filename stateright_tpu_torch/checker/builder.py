@@ -129,9 +129,11 @@ class CheckerBuilder:
         a model with neither.
 
         ``compaction`` ("auto" or "pallas", both the CUDA kernel
-        ``csrc/compact.cu``; "gather", "sort" and "bsearch" raise, queued
-        in ROADMAP A) and ``ladder`` ("auto" = ``STPU_LADDER`` or "jump",
-        which extrapolates the frontier's growth past bucket rungs; "ramp"
+        ``csrc/compact.cu``, on every device and under every visited set;
+        the reference's "gather", "sort" and "bsearch" raise: they are
+        functions in ``ops/compact.py``, timed beside the kernel, and not
+        engine options, ROADMAP A11) and ``ladder`` ("auto" =
+        ``STPU_LADDER`` or "jump", which extrapolates the frontier's growth past bucket rungs; "ramp"
         steps one rung per frontier overflow). Observability, off by
         default and never inside a captured graph (``obs/``): ``trace``
         (a span JSONL path or a ``Tracer``; env ``STPU_TRACE``, and

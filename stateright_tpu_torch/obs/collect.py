@@ -1,9 +1,10 @@
 """Merged fleet timeline: stitch every span ``trace.jsonl`` under a
 service/fleet run dir into ONE Perfetto-loadable Chrome trace.
 
-The port's own copy of ``stateright_tpu/obs/collect.py``; the port has no
-service yet (ROADMAP A10c), but the merger reads any directory of span
-files, a set of port checkers' traces included.
+The port's own copy of ``stateright_tpu/obs/collect.py``: it merges the
+run dirs of the port's ``CheckerService`` and ``FleetService``
+(``service/core.py``, ``service/fleet.py``), and any other directory of
+span files, a set of port checkers' traces included.
 
 A traced run scatters span files across the process tree — the fleet's
 router (``<run_dir>/trace.jsonl``), each pool's service

@@ -1,9 +1,10 @@
 """OpenMetrics rendering of metrics snapshots.
 
 The port's own copy of ``stateright_tpu/obs/promexport.py``, whole:
-:func:`pool_samples` renders any pool snapshot handed to it, though the
-port has no service yet (ROADMAP A10c); the Explorer's ``GET /.metrics``
-renders its checker's snapshot. Turns any ``checker.metrics()`` snapshot, pool snapshot,
+:func:`pool_samples` renders the ``gauges()`` of a ``CheckerService`` or
+a ``FleetService`` (``service/``), and the Explorer's ``GET /.metrics``
+renders its checker's snapshot, and its pool's when it serves one. Turns any
+``checker.metrics()`` snapshot, pool snapshot,
 or :mod:`~stateright_tpu_torch.obs.timeseries` row into the OpenMetrics
 text format Prometheus-shaped scrapers consume. The one difference:
 :func:`build_info_sample` labels the build with torch's version, not

@@ -16,6 +16,21 @@ slots to the kernel as they lie, with no stacked copy.
 
 On a CPU tensor :func:`compact` runs :func:`compact_plain`; on a CUDA
 tensor it launches the kernel or raises.
+
+The reference's other lowerings of ``spawn_xla(compaction=)``
+(``compact_1d``'s branches in ``stateright_tpu/xla.py``) are here as
+yardsticks for the kernel, not as engine options: the engine compacts
+with :func:`compact` alone and refuses their names (ROADMAP A11), and
+``chip_smoke.py`` checks and times them beside it. They keep the same
+contract and zero the columns past the survivors, on either device:
+:func:`compact_gather`, :func:`compact_sort` and :func:`compact_bsearch`.
+They are plain tensor operations with static shapes (no ``nonzero``, no
+masked indexing, no host read), so a CUDA graph captures them, and they
+work plane by plane: no stacked ``[P, m]`` copy of the lanes is made.
+They need no priority key: the engine's grid is state-major
+(``k = f*A + a``), so array order is semantic order, as the reference's
+``"bsearch"`` grid build makes it. :data:`LOWERINGS` maps each
+reference name to its function.
 """
 
 from __future__ import annotations
@@ -26,7 +41,7 @@ from typing import Sequence, Tuple
 import torch
 
 from . import _cuda
-from .words import DTYPE
+from .words import DTYPE, MASK32
 
 #: Lanes one launch takes (``stpu::kMaxLanes`` in ``csrc/compact.cuh``).
 MAX_LANES = 64
@@ -101,3 +116,95 @@ def compact(
 
 compact.launches = 0
 compact.captured = 0
+
+
+def _emit(mask, lanes, cap: int, take: int, n_valid, plane) -> torch.Tensor:
+    """``out [P, cap]``: in row ``p``, ``plane(lanes[p])``, the first
+    ``take`` survivors' words of that lane (anything past ``n_valid`` in
+    them is garbage), and zero from ``min(n_valid, cap)`` on."""
+    out = torch.zeros((len(lanes), cap), dtype=DTYPE, device=mask.device)
+    for p, lane in enumerate(lanes):
+        out[p, :take] = plane(lane)
+    dead = torch.arange(take, device=mask.device) >= n_valid
+    out[:, :take].masked_fill_(dead, 0)
+    return out
+
+
+def _gather_by(mask, lanes, cap: int, take: int, n_valid, order) -> torch.Tensor:
+    """Each lane's words at the flat indices ``order`` (``take`` of them)
+    of the mask, read through the lane's own strides: a grid plane or a
+    broadcast lane is not copied."""
+    if mask.dim() == 1:
+        return _emit(mask, lanes, cap, take, n_valid, lambda lane: lane[order])
+    cols = mask.shape[1]
+    row, col = order // cols, order % cols
+    return _emit(mask, lanes, cap, take, n_valid, lambda lane: lane[row, col])
+
+
+def compact_gather(
+    mask: torch.Tensor, lanes: Sequence[torch.Tensor], cap: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``"gather"``: one stable sort of the 0/1 invalid
+    key over the flattened mask (its ``(key, iota)`` permutation sort),
+    the first ``min(cap, m)`` indices of the permutation, and a gather of
+    every lane by them."""
+    _check(mask, lanes)
+    take = min(cap, mask.numel())
+    n_valid = mask.sum()
+    invalid = (~mask.reshape(-1)).to(torch.uint8)
+    order = torch.sort(invalid, stable=True).indices[:take]
+    return _gather_by(mask, lanes, cap, take, n_valid, order), n_valid
+
+
+def compact_sort(
+    mask: torch.Tensor, lanes: Sequence[torch.Tensor], cap: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``"sort"``: the lanes ride the sort as payload, so
+    no lane is gathered at random. ``torch.sort`` takes no payload, so each
+    lane sorts one int64 word a slot, ``(invalid << 62) | (j << 32) |
+    (lane[j] & MASK32)``, and keeps its low 32 bits. The words are distinct
+    (``j`` is), so stability does not matter, and they fit a non-negative
+    int64: the reference asserts ``m < 2**30``. A survivor's value comes
+    back modulo ``2**32``: the engine's lanes are 32-bit words (``packing``
+    masks every field to 32 bits), and a word outside ``[0, 2**32)`` in a
+    dropped slot cannot disturb the order."""
+    _check(mask, lanes)
+    m = mask.numel()
+    if m >= 1 << 30:
+        raise ValueError(f"compact_sort takes fewer than 2**30 slots, got {m}")
+    take = min(cap, m)
+    n_valid = mask.sum()
+    key = ((~mask).to(DTYPE) << 62) | (
+        torch.arange(m, dtype=DTYPE, device=mask.device).view(mask.shape) << 32)
+
+    def plane(lane):
+        return torch.sort((key | (lane & MASK32)).reshape(-1)).values[:take] & MASK32
+
+    return _emit(mask, lanes, cap, take, n_valid, plane), n_valid
+
+
+def compact_bsearch(
+    mask: torch.Tensor, lanes: Sequence[torch.Tensor], cap: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``"bsearch"``: no permutation sort. Survivor ``i``
+    is the first slot whose running count of the mask reaches ``i + 1``:
+    an int64 ``cumsum`` of the mask, a ``searchsorted`` of the ranks
+    ``1..min(cap, m)`` over it (clamped to the last slot for the ranks
+    past ``n_valid``), and one ascending gather of every lane."""
+    _check(mask, lanes)
+    m = mask.numel()
+    take = min(cap, m)
+    n_valid = mask.sum()
+    running = torch.cumsum(mask.reshape(-1), 0)
+    ranks = torch.arange(1, take + 1, dtype=running.dtype, device=mask.device)
+    order = torch.searchsorted(running, ranks, side="left").clamp_(max=max(m - 1, 0))
+    return _gather_by(mask, lanes, cap, take, n_valid, order), n_valid
+
+
+#: The reference's tensor lowerings of ``spawn_xla(compaction=)`` by name,
+#: the yardsticks of :func:`compact` (the reference's ``"pallas"``).
+LOWERINGS = {
+    "gather": compact_gather,
+    "sort": compact_sort,
+    "bsearch": compact_bsearch,
+}

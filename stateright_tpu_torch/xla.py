@@ -176,22 +176,26 @@ ENGINE_COUNTERS = (
     "ladder_jumps", "checkpoints_written", "graph_captures", "dead_replays",
 )
 
-#: ``compaction=`` values the reference takes that the port has not yet:
-#: queued in ROADMAP A.
+#: ``compaction=`` values the reference takes that the port's engine
+#: refuses (ROADMAP A11, a logged difference): ``ops/compact.py`` holds
+#: them as functions, timed beside the kernel, which was faster at every
+#: shape measured on the card.
 UNPORTED_COMPACTIONS = ("gather", "sort", "bsearch")
 
 
 def _resolve_compaction(compaction: str) -> str:
     """``"auto"`` (or ``STPU_COMPACTION``) and ``"pallas"`` name the one
     compaction the port has, the CUDA kernel ``csrc/compact.cu``, the
-    reference's ``"pallas"`` semantics; the reference's other lowerings
-    raise rather than run a quiet substitute."""
+    reference's ``"pallas"`` semantics, under every visited set (the
+    reference refuses ``"pallas"`` under ``dedup="hash"``, whose rows
+    engine the port does not have); the reference's other lowerings raise
+    rather than run a quiet substitute."""
     if compaction == "auto":
         compaction = os.environ.get("STPU_COMPACTION") or "pallas"
     if compaction in UNPORTED_COMPACTIONS:
         raise ValueError(
-            f"compaction={compaction!r} is not ported yet (ROADMAP A); the port "
-            f"compacts with the CUDA kernel: pass 'auto' or 'pallas'"
+            f"compaction={compaction!r} is not an engine option of the port (ROADMAP A11); "
+            f"the port compacts with the CUDA kernel: pass 'auto' or 'pallas'"
         )
     if compaction != "pallas":
         raise ValueError(
