@@ -7,7 +7,10 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
 
 1. prints the card's name and power limit and builds every CUDA kernel of
    the port from ``stateright_tpu_torch/csrc`` (one ``nvcc`` per source, all
-   started together);
+   started together) and, beside them, the native host kit
+   (``stateright_tpu_torch/native/hostkit.cpp``, ``g++``), which must load:
+   every parent map an engine builds for a witness path in this process is
+   then the library's, or the script fails (:class:`NativeMaps`);
 2. checks small 2pc spaces on the card against the pinned counts, and the
    rm=4 search on the card (fused blocks of CUDA graphs) against the same
    search on the CPU (the same gated level, run eagerly): per-level
@@ -28,7 +31,12 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    (``graphs.LOOKAHEAD``) over warm runs; runs ``levels_per_dispatch=1``
    at rm=8 for the comparison; and holds rm=5 through graph replays
    against the same gated level run eagerly on the card: equal level and
-   dispatch logs and bitwise equal table planes;
+   dispatch logs and bitwise equal table planes; and times the warm run's
+   witness reconstruction with the native parent map and with its Python
+   fallback (:func:`witness_times`: host seconds of the read of the
+   occupied rows, of each map's build and of each chain, and of the whole
+   ``discoveries()``, every chain equal under both), as ``soak_rm9`` later
+   does at rm=9 under each visited set (the ``native`` line);
 4. drives packed Paxos (``PackedPaxos(c, 3).checker().spawn_xla()``):
    2c/3s to full coverage through CUDA-graph blocks (32,971 generated,
    16,668 unique, the 8-action "value chosen" witness re-executed), equal
@@ -39,7 +47,10 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    bucket and the device time of its widest level by stage, then cold and
    warm through the fused path to the same depth
    (equal level by level, the warm run capturing nothing), the depth of
-   ROUND3.md's CPU probe, and a warm run under ``torch.profiler``;
+   ROUND3.md's CPU probe, and a warm run under ``torch.profiler``; then,
+   on the same model instance, a run to ``PAXOS3_DEPTH`` under the hash
+   set (``paxos3_hash``): a second graph set at the widest bucket beside
+   the sorted set's, exact, with the card's memory before and after;
 5. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (20 launches each, since a look-back race shows only
    now and then) and on ragged, overflow and adversarial cases for the
@@ -152,7 +163,9 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    harness's ``device_lost`` and ``kill`` scenarios at ``--fleet 2`` (each
    after its baseline, ``ok``), and a ``2pc:4`` job flaky on pool 0 whose
    wedge opens only that pool's breaker and migrates it to pool 1 on the
-   card; and observability (``obs``): rm=8 cold on a fresh model instance, then warm
+   card, then the fleet's run dir bundled for a post-mortem
+   (``tools/trace_bundle.py`` of the port) and the manifest's counts
+   printed; and observability (``obs``): rm=8 cold on a fresh model instance, then warm
    with everything off, on (a span trace, a heartbeat, a metrics series
    every level, the phase split), off and on, each wall printed, the off
    runs holding ``NULL_TRACER`` and giving the on runs' logs; the trace,
@@ -202,8 +215,9 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
 16. prints the ``{"kernels": [...]}`` line (launches summed over every
    main-path run: rm=8, Paxos 3c/3s, single-copy-register, the
    host-verified runs and the paths of items 9 to 15, the service's and
-   the fleet's from their workers' ``--out`` files, each also by path)
-   and, last, the device line.
+   the fleet's from their workers' ``--out`` files, each also by path),
+   the count of parent maps the engines built (``native_maps``) and, last,
+   the device line.
 
 Every line but the nvidia-smi one is a JSON object. Any failed check
 raises, so the script exits non-zero.
@@ -212,12 +226,14 @@ raises, so the script exits non-zero.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import glob
 import json
 import multiprocessing
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -231,7 +247,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
-from stateright_tpu_torch import PathRecorder, graphs, obs
+from stateright_tpu_torch import PathRecorder, graphs, native, obs
 from stateright_tpu_torch.audit import audit_table
 from stateright_tpu_torch.checker import explorer
 from stateright_tpu_torch.checker.explorer import make_app
@@ -268,6 +284,7 @@ from stateright_tpu_torch.xla import XlaChecker
 from stateright_tpu_torch.xla_mux import MuxChecker
 from stateright_tpu_torch.service import CheckerService, ServiceConfig
 from stateright_tpu_torch.service.registry import resolve as resolve_spec
+from stateright_tpu_torch.tools import trace_bundle
 
 #: H100 SXM device-memory rate, bytes per second (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -316,6 +333,12 @@ M32 = 0xFFFFFFFF
 SLEEP_CYCLES = 50_000_000
 #: The program recorder (:class:`ProgramUse`), installed by ``main``.
 PROGRAM_USE = None
+#: The parent-map check (:class:`NativeMaps`), installed by ``main``.
+NATIVE_MAPS = None
+#: The ``native`` phase's witness timings, by run (:func:`witness_times`).
+WITNESS = {}
+#: ``nvidia-smi``'s name and power limit of the card (``device_phase``).
+SMI = None
 #: The kernels' names as the profiler lists them (``csrc/compact.cuh``,
 #: ``csrc/merge.cu``).
 COMPACT_SYMBOL = "compact_kernel"
@@ -370,17 +393,25 @@ def timed_ms(fn, reps: int = 20, queued: bool = False) -> float:
 
 
 def device_phase() -> None:
-    smi = subprocess.run(
+    global SMI
+    SMI = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    print(smi, flush=True)
+    print(SMI, flush=True)
     emit({
-        "phase": "device", "nvidia_smi": smi,
+        "phase": "device", "nvidia_smi": SMI,
         "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         "torch": torch.__version__, "cuda": torch.version.cuda,
     })
-    emit({"phase": "build", "seconds": _cuda.build(), "sources": list(_cuda.SOURCES)})
+    # The kernels' nvcc and the host kit's g++, started together.
+    with ThreadPoolExecutor(1) as ex:
+        host_kit = ex.submit(native.build)
+        seconds = _cuda.build()
+        native_seconds = host_kit.result()
+    require(native.available(), "the native host kit did not load")
+    emit({"phase": "build", "seconds": seconds, "sources": list(_cuda.SOURCES),
+          "native_seconds": native_seconds, "native_library": str(native.library_path())})
 
 
 LEVEL_KEYS = ("depth", "frontier", "generated", "unique", "bucket", "cand_cap")
@@ -914,10 +945,46 @@ def paxos3_phase():
         "W": model.state_words,
     }
     ckpt_launches = checkpoint_paxos3_phase(model, warm)
-    del model, cold, warm, single, probe, prof
+    del cold, warm, single, probe, prof
+    ckpt_launches["paxos3_hash"] = paxos3_second_set_phase(model, shapes)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return shapes, cold_launches, ladder, ckpt_launches
+
+
+def paxos3_second_set_phase(model, shapes) -> dict:
+    """A second graph set on one model instance at Paxos 3c/3s's widest
+    bucket (ROADMAP C2): ``model``, which ran cold, warm, to depth 16,
+    profiled and checkpointed under the sorted set, run to ``PAXOS3_DEPTH``
+    under ``dedup="hash"``: exact, equal level by level to the sorted runs,
+    the witness re-executed; the card's allocated, reserved and peak memory
+    before and after. Returns the run's launches."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+              "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    torch.cuda.reset_peak_memory_stats()
+    PROGRAM_USE.segment = "paxos3_hash"
+    c, wall, launches = drive(model, depth=PAXOS3_DEPTH, dedup="hash")
+    PROGRAM_USE.segment = "other"
+    counts = (c.state_count(), c.unique_state_count())
+    require(counts == PAXOS3_DEPTH15, f"paxos 3c/3s under hash on the sorted run's instance: {counts}")
+    require([list(r[:4]) for r in levels(c)] == [[r[k] for k in LEVEL_KEYS[:4]] for r in shapes["levels"]],
+            "paxos 3c/3s under hash: levels differ from the sorted run's")
+    require(all(n > 0 for n in launches.values()), f"paxos 3c/3s under hash: launches {launches}")
+    check_paths(c)
+    m = c.metrics()
+    emit({"phase": "paxos3_hash", "generated": counts[0], "unique": counts[1],
+          "max_depth": c.max_depth(), "wall_s": wall, "launches": launches,
+          "graph_captures": m["graph_captures"], "capture_s": m["graph_capture_s"],
+          "table_capacity": m["table_capacity"], "table_grows": m["table_grows"],
+          "widest_bucket": max(r["bucket"] for r in c.level_log),
+          "memory": {"before": before, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "reserved_after_gib": torch.cuda.memory_reserved() / 2**30},
+          "programs": len(graphs.cache_for(model, torch.device("cuda")).programs),
+          "audit": audited(c, "paxos 3c/3s hash"), "nvidia_smi": SMI})
+    return launches
 
 
 def paxos3_growth_phase(counts) -> None:
@@ -936,7 +1003,9 @@ def paxos3_growth_phase(counts) -> None:
     emit({"phase": "paxos3_table_growth", "table_capacity": [1 << 17, m["table_capacity"]],
           "table_grows": m["table_grows"], "graph_captures": m["graph_captures"],
           "capture_s": m["graph_capture_s"], "capture_s_by_shape": captures, "wall_s": wall,
-          "dispatch_log": c.dispatch_log, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+          "dispatch_log": c.dispatch_log, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+          "reserved_gib": torch.cuda.memory_reserved() / 2**30})
     del c
     gc.collect()
     torch.cuda.empty_cache()
@@ -1583,6 +1652,95 @@ def check_paths(c) -> None:
         c.assert_discovery(name, path.into_actions())
 
 
+class NativeMaps:
+    """Every parent map that an engine builds for its witness paths (the
+    single-chip and the sharded engines' ``_parent_map``) while installed:
+    the script fails on a map that the native host kit does not hold,
+    unless ``fallback_ok`` (:func:`python_fallback`)."""
+
+    def __init__(self):
+        self.native = self.fallback = 0
+        self.fallback_ok = False
+        for cls in (XlaChecker, sharded_mod.ShardedXlaChecker):
+            self._track(cls)
+
+    def _track(self, cls) -> None:
+        original = cls._parent_map
+
+        def tracked(checker):
+            pm = original(checker)
+            if pm.native:
+                self.native += 1
+            else:
+                require(self.fallback_ok, f"{type(checker).__name__}: a parent map fell back to Python")
+                self.fallback += 1
+            return pm
+
+        cls._parent_map = tracked
+
+
+@contextlib.contextmanager
+def python_fallback():
+    """The host kit's Python fallback forced, as the tests force it (its
+    loader replaced by one that finds no library)."""
+    load = native._load
+    native._load = lambda: None
+    NATIVE_MAPS.fallback_ok = True
+    try:
+        yield
+    finally:
+        native._load = load
+        NATIVE_MAPS.fallback_ok = False
+
+
+def witness_times(c, what: str) -> dict:
+    """Witness reconstruction of a single-chip checker ``c``'s discoveries
+    with the native map and with the fallback (``native.SortedParentMap``),
+    host seconds on the card's machine: the host read of the occupied rows,
+    each map's build, ``len`` and ``chain`` of each discovery, and the
+    whole ``discoveries()`` under each (the read, the map and the forward
+    walk through the object model). Every chain equal under both maps, both
+    maps as long as the unique count, the paths equal, every discovery
+    re-executed."""
+    found = dict(c._found_names)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = c._ds.occupied_rows(c._table)
+    out = {"rows": len(rows[0]), "read_s": time.perf_counter() - t0}
+    chains = {}
+    for kind, build in (("native", native.ParentMap), ("fallback", native.SortedParentMap)):
+        t0 = time.perf_counter()
+        pm = build(*rows)
+        line = {"build_s": time.perf_counter() - t0, "len": len(pm), "chain_s": {}}
+        require(kind == "fallback" or pm.native, f"{what}: the engine's map is not native")
+        chains[kind] = {}
+        for name, fp in found.items():
+            t0 = time.perf_counter()
+            chains[kind][name] = pm.chain(fp)
+            line["chain_s"][name] = time.perf_counter() - t0
+        out[kind] = line
+        del pm
+    require(chains["native"] == chains["fallback"], f"{what}: the chains differ between the maps")
+    require(out["native"]["len"] == out["fallback"]["len"] == c.unique_state_count(),
+            f"{what}: map lengths {out['native']['len']}, {out['fallback']['len']}")
+    t0 = time.perf_counter()
+    paths = c.discoveries()
+    out["native"]["discoveries_s"] = time.perf_counter() - t0
+    with python_fallback():
+        t0 = time.perf_counter()
+        fallback_paths = c.discoveries()
+        out["fallback"]["discoveries_s"] = time.perf_counter() - t0
+    actions = {name: p.into_actions() for name, p in paths.items()}
+    require(actions == {name: p.into_actions() for name, p in fallback_paths.items()},
+            f"{what}: the paths differ between the maps")
+    c.assert_properties()
+    for name, acts in actions.items():
+        c.assert_discovery(name, acts)
+    out["chain_len"] = {name: len(ch) for name, ch in chains["native"].items()}
+    out["chains_equal"] = True
+    return out
+
+
 def checkpoint_resume(model, depth: int, whole, what: str, final_depth=None) -> dict:
     """``model`` searched on the card to ``depth`` and saved; the file
     resumed in a fresh checker on the card and joined (to ``final_depth``
@@ -1980,6 +2138,9 @@ elif mode == "restart-b":
     need(job.recovered and job.id == "job-0001", f"restart: {job.id} {job.recovered}")
     need(job.wait(timeout=900), "restart: timeout")
     jl = exact(job, cfg["big_pins"])
+    # A fresh job starts at depth 1: the recovered one resumes from the
+    # orphan's rotation.
+    need(jl["start_depth"] > 1, f"restart: resumed at depth {jl['start_depth']}")
     p.close()
     done = [r for r in read_journal(p._journal.path).records if r["event"] == "completed"]
     need(len(done) == 1 and done[0]["status"] == "done", f"restart: completions {done}")
@@ -2089,6 +2250,47 @@ def service_phase(config: dict = SERVICE_CARD, explorer_rm: int = 8) -> dict:
         kill_service_workers(run_dir)
 
 
+def service_restart(cfg: dict, run_dir: str, root: str) -> dict:
+    """Item 6 of the ``service`` phase: a pool process (``restart-a``)
+    SIGKILLed once its job's first block is committed, its worker held
+    there, and a new pool (``restart-b``) over the same run dir, which
+    kills the orphan and resumes the job from its rotation, exact. Returns
+    ``restart-b``'s line with the orphan's state and the beat at the kill."""
+    with open(os.path.join(run_dir, "restart-a.out"), "w") as log:
+        first = subprocess.Popen([sys.executable, "-c", SERVICE_BOOT, "restart-a", json.dumps(cfg)],
+                                 cwd=root, stdout=log, stderr=subprocess.STDOUT)
+    journal = os.path.join(run_dir, "restart", "journal.jsonl")
+    deadline = time.monotonic() + 600
+    beat = worker_pid = None
+    while time.monotonic() < deadline and first.poll() is None and worker_pid is None:
+        # The job's first committed block: its first valid rotation.
+        for ck in glob.glob(os.path.join(run_dir, "restart", "svc-*", "job-0001", "ck.npz")):
+            if latest_valid_checkpoint(ck) is not None:
+                beat = heartbeat.read(os.path.join(os.path.dirname(ck), "hb.json")) or {}
+                started = [json.loads(ln) for ln in open(journal)]
+                worker_pid = [r for r in started if r["event"] == "started"][0]["pid"]
+        time.sleep(0.2)
+    # The orphan is held where its first rotation left it, before the pool
+    # is killed: run on, it can finish the job before the restarted pool
+    # kills it, and the resumed job then has no level left to launch (a
+    # race with the host's speed). The restart must still find it alive,
+    # kill it and resume the job from that rotation.
+    if worker_pid is not None:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(worker_pid, signal.SIGSTOP)
+    alive = first.poll() is None
+    first.kill()
+    first.wait(timeout=60)
+    require(alive and worker_pid is not None, f"service restart: no committed block ({beat})")
+    orphan_alive = os.path.exists(f"/proc/{worker_pid}")
+    second = {ln["item"]: ln for ln in service_boot("restart-b", cfg)}
+    restart = second["restart_b"]
+    require(restart["cuda_initialized"] is False, "service restart: the pool process touched CUDA")
+    require(not os.path.exists(f"/proc/{worker_pid}") or open(f"/proc/{worker_pid}/stat").read().split()[2] == "Z",
+            "service restart: the orphaned worker survived the restart")
+    return dict(restart, orphan_alive_at_restart=orphan_alive, killed_at_beat_seq=beat.get("seq"))
+
+
 def service_drills(config, cfg, run_dir, root, batch_proc, batch_out, explorer_rm, t0) -> dict:
     """``service_phase``'s body once the batch pool process runs."""
     on_card = config["platform"] != "cpu"
@@ -2102,30 +2304,7 @@ def service_drills(config, cfg, run_dir, root, batch_proc, batch_out, explorer_r
     if batch_proc.poll() is not None and batch_proc.returncode != 0:
         with open(batch_out) as fh:
             require(False, f"service batch: exit {batch_proc.returncode}\n{fh.read()[-6000:]}")
-    with open(os.path.join(run_dir, "restart-a.out"), "w") as log:
-        first = subprocess.Popen([sys.executable, "-c", SERVICE_BOOT, "restart-a", json.dumps(cfg)],
-                                 cwd=root, stdout=log, stderr=subprocess.STDOUT)
-    journal = os.path.join(run_dir, "restart", "journal.jsonl")
-    deadline = time.monotonic() + 600
-    beat = None
-    while time.monotonic() < deadline and first.poll() is None:
-        hbs = glob.glob(os.path.join(run_dir, "restart", "svc-*", "job-0001", "hb.json"))
-        beat = heartbeat.read(hbs[0]) if hbs else None
-        if beat is not None and beat.get("seq", 0) >= 1:
-            break
-        time.sleep(0.2)
-    alive = first.poll() is None
-    first.kill()
-    first.wait(timeout=60)
-    require(alive and beat is not None, f"service restart: no beat ({beat})")
-    started = [json.loads(ln) for ln in open(journal)]
-    worker_pid = [r for r in started if r["event"] == "started"][0]["pid"]
-    orphan_alive = os.path.exists(f"/proc/{worker_pid}")
-    second = {ln["item"]: ln for ln in service_boot("restart-b", cfg)}
-    restart = second["restart_b"]
-    require(restart["cuda_initialized"] is False, "service restart: the pool process touched CUDA")
-    require(not os.path.exists(f"/proc/{worker_pid}") or open(f"/proc/{worker_pid}/stat").read().split()[2] == "Z",
-            "service restart: the orphaned worker survived the restart")
+    restart = service_restart(cfg, run_dir, root)
     rc = batch_proc.wait(timeout=900)
     with open(batch_out) as fh:
         text = fh.read()
@@ -2202,7 +2381,7 @@ def service_drills(config, cfg, run_dir, root, batch_proc, batch_out, explorer_r
                                                           "degraded_jobs", "wedge_verdicts",
                                                           "device_probes")}},
           "restart": {"recovery": restart["recovery"], "job": brief(restart["job"]),
-                      "orphan_alive_at_restart": orphan_alive, "killed_at_beat_seq": beat.get("seq"),
+                      **{k: restart[k] for k in ("orphan_alive_at_restart", "killed_at_beat_seq")},
                       "completed_records": restart["completed_records"],
                       "pool_wall_s": restart["wall_s"]},
           "explorer": {"status_keys": sorted(k for k in ("job", "degraded", "pool") if k in clicked),
@@ -2607,7 +2786,10 @@ def fleet_phase(config: dict = FLEET_CARD) -> dict:
                                   "launches", "attempts", "engine", "platform") if k in w} | (
             {"wall_s": w["wall_s"], "migrations": w["migrations"]} if "wall_s" in w else {})
 
+    manifest = trace_bundle.bundle(run_dir, run_dir + "-bundle", lint_path=None)
+    require(bool(manifest["journals"]), f"fleet: the trace bundle holds no journal: {manifest}")
     emit({"phase": "fleet", "wall_s": time.perf_counter() - t0,
+          "trace_bundle": trace_bundle.counts(manifest),
           "failover_wall_s": failover_wall, "cards": n_cards,
           "fleet_failover_rm8": {
               "victim": brief(failover["victim"]), "sibling": brief(failover["sibling"]),
@@ -3654,6 +3836,7 @@ def soak_phase():
         PROGRAM_USE.segment = f"soak_{dedup}_cold"
         cold, cold_wall, launches[f"dedup_{dedup}_rm9"] = drive(model, dedup=dedup)
         cold_peak = torch.cuda.max_memory_allocated() / 2**30
+        cold_peak_reserved = torch.cuda.max_memory_reserved() / 2**30
         PROGRAM_USE.segment = f"soak_{dedup}_warm"
         warm, warm_wall, warm_launches = drive(model, dedup=dedup)
         PROGRAM_USE.segment = "other"
@@ -3668,8 +3851,9 @@ def soak_phase():
         require(now[1] == [r[:4] for r in levels(warm)], f"rm=9 {dedup}: warm vs cold levels")
         ref = ref or now
         require(now == ref, f"rm=9 {dedup}: counts or levels differ from the sorted run's")
-        check_paths(warm)
+        WITNESS[f"rm9_{dedup}"] = witness_times(warm, f"rm=9 {dedup}")
         line["peak_mem_gib"] = cold_peak
+        line["peak_reserved_gib"] = cold_peak_reserved
         line["reserved_gib"] = torch.cuda.memory_reserved() / 2**30
         line["widest_level"] = dict(max(warm.level_log, key=lambda r: r["frontier"]))
         line["table_step"] = table_step_ms(model, dedup, warm)
@@ -4644,8 +4828,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    global PROGRAM_USE, CKPT_DIR
+    global PROGRAM_USE, NATIVE_MAPS, CKPT_DIR
     PROGRAM_USE = ProgramUse()
+    NATIVE_MAPS = NativeMaps()
     CKPT_DIR = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         return run_phases()
@@ -4660,6 +4845,7 @@ def run_phases() -> int:
     service_launches, fleet_launches = service_and_fleet_phases()
     small_phase()
     model, checker, launches, ladder = main_path_phase()
+    WITNESS["rm8"] = witness_times(checker, "rm=8")
     new_paths = {
         "checkpoint_rm8": checkpoint_rm8_phase(model, checker),
         "autockpt_rm8": autockpt_rm8_phase(model),
@@ -4690,6 +4876,7 @@ def run_phases() -> int:
     new_paths.update(sym_launches)
     dedup_launches, hk, dk = dedup_phase(model, checker, np.random.default_rng(2025))
     new_paths.update(dedup_launches)
+    emit({"phase": "native", "nvidia_smi": SMI, **WITNESS})
     explorer_launches, ck = explorer_phase(np.random.default_rng(2026))
     new_paths.update(explorer_launches)
     new_paths.update(mux_phase())
@@ -4751,6 +4938,7 @@ def run_phases() -> int:
                                shk[name]["max_abs_err"]),
         })
     emit({"kernels": kernels})
+    emit({"phase": "native_maps", "native": NATIVE_MAPS.native, "fallback": NATIVE_MAPS.fallback})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

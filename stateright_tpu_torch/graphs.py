@@ -34,10 +34,22 @@ the gate.
   card, or nothing on the CPU, where the checker runs the same gated level
   eagerly.
 - A :class:`ProgramCache` per model and device holds the carries, the
-  programs (every rung of each bucket a block ran at), and the graph
-  memory pool that all of a model's graphs at one table capacity share
-  (their intermediates are dead when a replay ends, and no two replays run
-  at once); a table growth frees it and starts another.
+  programs (every rung of each bucket a block ran at), and the memory pool
+  (``torch.cuda.MemPool``) that every live graph of the model instance
+  allocates from, of every table capacity and visited-set structure, with
+  the warm-up level of each capture: blocks that one capture or warm-up
+  freed are reused by the next, so a second graph set of the instance
+  (another structure) needs no second copy of the widest level's
+  intermediates. A table growth that leaves the cache no graph hands the
+  pool's memory back and starts another pool; one that leaves another
+  structure's graphs keeps the pool, whose blocks only later captures can
+  reuse (the grown carry is allocated outside it). What keeps two graphs
+  of the pool apart is order: a graph's intermediates are dead when its
+  replay ends, every replay runs on the current stream, a warm-up and
+  capture run on the side stream after everything queued there and before
+  anything queued after, and one thread at a time drives the card for an
+  instance (a capture fails while another thread launches work; the
+  Explorer holds a lock around each checker call).
 
 The multiplexed engine (``xla_mux.py``) keeps its own entries in the same
 cache: a :class:`MuxCarry` (one carry a lane and the mux's block scalars)
@@ -98,8 +110,8 @@ OVF = slice(S["t_ovf"], S["cc_ovf"] + 1)
 #: and the rung the level ran at (its frontier rows and candidate cap).
 LVL_ROWS = 5
 
-#: A capture first empties the allocator's cache when the warm-up left more
-#: than this fraction of the card's memory cached and unused.
+#: A capture first empties the allocator's cache when more than this
+#: fraction of the card's memory lies cached and unused outside its pool.
 IDLE_CACHE_DEN = 8
 
 #: The kernel wrappers whose launches a graph can hold.
@@ -229,24 +241,27 @@ class Program:
 
 def capture(body: Callable[[], None], pool, side: torch.cuda.Stream) -> Tuple[object, list]:
     """``body`` (one gated level on a dead carry) run once eagerly on the
-    side stream, then captured there into a CUDA graph in ``pool``. Returns
-    the graph and the launches of each kernel it holds. Raises if the
-    capture fails. (``torch.cuda.graph`` would also run the garbage
-    collector and empty the allocator's cache around every capture.)"""
+    side stream, then captured there into a CUDA graph; both allocate from
+    ``pool`` (a ``torch.cuda.MemPool``), so the capture reuses the blocks
+    the warm-up freed, and both reuse those that earlier captures of the
+    pool freed. Returns the graph and the launches of each kernel it holds.
+    Raises if the capture fails. (``torch.cuda.graph`` would also run the
+    garbage collector and empty the allocator's cache around every
+    capture.)"""
+    # Neither the warm-up nor the capture can take blocks cached outside the
+    # pool, and an allocation that fails while they run does not hand those
+    # back: where they are a large share of the card, hand them back first.
+    idle = releasable_idle(side.device, pool)
+    if idle > torch.cuda.get_device_properties(side.device).total_memory // IDLE_CACHE_DEN:
+        torch.cuda.synchronize(side.device)
+        torch.cuda.empty_cache()
     side.wait_stream(torch.cuda.current_stream())
     before = [fn.captured for fn in KERNELS]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):
-        body()
-        # The capture allocates from the graph pool, which cannot reuse the
-        # blocks the warm-up left cached in the default pool: where those
-        # are a large share of the card (a wide model's level), hand them
-        # back first.
-        idle = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
-        if idle > torch.cuda.get_device_properties(side.device).total_memory // IDLE_CACHE_DEN:
-            side.synchronize()
-            torch.cuda.empty_cache()
-        graph.capture_begin(pool=pool)
+        with torch.cuda.use_mem_pool(pool, side.device):
+            body()
+        graph.capture_begin(pool=pool.id)
         try:
             body()
         finally:
@@ -255,15 +270,47 @@ def capture(body: Callable[[], None], pool, side: torch.cuda.Stream) -> Tuple[ob
     return graph, [(fn, fn.captured - b) for fn, b in zip(KERNELS, before)]
 
 
+def releasable_idle(device: torch.device, pool) -> int:
+    """Bytes that the allocator holds cached and unused on ``device``
+    outside ``pool``: the default pool's free blocks and those of other
+    graph pools, which ``torch.cuda.empty_cache`` hands back once no graph
+    holds their pool (a dead model instance's, a pool a growth left).
+    ``pool``'s own free blocks are not counted: its live graphs keep it."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    own = tuple(pool.id)
+    return sum(seg["total_size"] - seg["allocated_size"] for seg in torch.cuda.memory_snapshot()
+               if seg["device"] == index and tuple(seg.get("segment_pool_id", (0, 0))) != own)
+
+
+def _hold(pool, side: torch.cuda.Stream) -> Tuple[object, torch.Tensor]:
+    """A one-operation graph captured into ``pool`` and kept with it, so that
+    the pool always holds a graph: PyTorch retires a pool's capture state
+    with its last graph, after which a capture into it fails (the mux drops
+    an outgrown program outside :meth:`ProgramCache._release`)."""
+    flag = torch.zeros(1, dtype=DTYPE, device=side.device)
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=pool.id)
+        try:
+            flag.add_(1)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph, flag
+
+
 class ProgramCache:
     """A model's programs and carries on one device."""
 
     def __init__(self, device: torch.device):
         self.device = device
         cuda = device.type == "cuda"
-        self.pool = torch.cuda.graph_pool_handle() if cuda else None
+        #: The memory pool of every graph and warm-up (module docstring).
+        self.pool = torch.cuda.MemPool() if cuda else None
         #: The stream that warm-ups and captures run on.
         self.side = torch.cuda.Stream(device) if cuda else None
+        self._hold = _hold(self.pool, self.side) if cuda else None
         #: ``(table_capacity, levels_per_dispatch, hv_cap, dedup)`` -> Carry.
         self.carries: Dict[Tuple[int, int, int, str], Carry] = {}
         #: ``(run_cap, rows, cand_cap, table_capacity, levels_per_dispatch,
@@ -332,19 +379,31 @@ class ProgramCache:
     def drop_shard(self, shape: Tuple) -> None:
         """Forget the sharded carry of ``shape`` (:func:`shard_shape`) and
         every program on it, of every route width, probe budget and
-        symmetry tag, and hand their memory back as :meth:`drop` does."""
+        symmetry tag, releasing as :meth:`drop` does."""
         for key in [k for k in self.shard_programs if shard_shape(k) == shape]:
             del self.shard_programs[key]
         self.shard_carries.pop(shape, None)
         self._release()
 
+    def holds_graph(self) -> bool:
+        """Whether a program of the cache (single-chip, mux or sharded) holds
+        a captured graph."""
+        return any(prog.graph is not None
+                   for progs in (self.programs, self.mux_programs, self.shard_programs)
+                   for prog in progs.values())
+
     def _release(self) -> None:
-        """On a card: hand the memory of dropped graphs and carries back,
-        and send later captures to a new pool."""
+        """On a card: hand the memory of dropped carries back and, where the
+        cache holds no graph any more, the pool's too, sending later
+        captures to a new pool (module docstring). Otherwise the dropped
+        graphs' blocks stay in the pool, where later captures reuse them."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            if not self.holds_graph():
+                self._hold = None
+                self.pool = torch.cuda.MemPool()
+                self._hold = _hold(self.pool, self.side)
             torch.cuda.empty_cache()
-            self.pool = torch.cuda.graph_pool_handle()
 
     def make(self, key, carry: Carry, body: Callable[[], None], graph: bool) -> Program:
         """The program of ``key``; with ``graph``, ``body`` is captured, after
@@ -363,12 +422,10 @@ class ProgramCache:
         every symmetry tag and probe budget: those of another tag than the
         grown checker's are made anew when a check of that tag needs them,
         and the multiplexed programs and carries at that capacity. On a
-        card, the
-        memory of the dropped graphs and carry is handed back before the
-        programs at the grown capacity are made (a wide model's largest
-        bucket could not hold two levels' worth at once), and later
-        captures go to a new pool: a pool whose graphs are all gone is
-        freed with them and cannot take another capture."""
+        card, the memory of the dropped carry and graphs is handed back
+        before the programs at the grown capacity are made (a wide model's
+        largest bucket could not hold two levels' worth at once), as far as
+        :meth:`_release` can."""
         for key in [k for k in self.programs if k[3:7] == shape]:
             del self.programs[key]
         self.carries.pop(shape, None)

@@ -5,7 +5,7 @@ inside ``pallas_call``. Here each source ``csrc/<name>.cu`` is compiled by
 ``nvcc`` into ``build/kernels/lib<name>-<digest>.so`` at the repository
 root, at first use, and bound with ``ctypes`` through a plain C interface.
 The digest covers the sources, so an edited kernel is rebuilt and a stale
-library is never loaded.
+library is never loaded (``_build.py``, shared with the native host kit).
 
 Nothing here touches CUDA when the module is imported: the CPU tests import
 every module of the package on a machine with no ``nvcc`` and no card.
@@ -14,18 +14,21 @@ every module of the package on a machine with no ``nvcc`` and no card.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
+import sys
 import time
 from pathlib import Path
 from typing import Dict, Iterable
 
 import torch
 
+if __name__ == "__main__":  # run as a script: the package is beside it
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+from stateright_tpu_torch._build import BUILD_ROOT, compile_all, digest  # noqa: E402
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD = BUILD_ROOT / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -69,11 +72,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built, keyed by a digest of
     that source and every header beside it."""
-    h = hashlib.sha256()
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return BUILD / f"lib{name}-{digest([CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))])}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> float:
@@ -84,24 +83,9 @@ def build(names: Iterable[str] = SOURCES) -> float:
     todo = [(n, library_path(n)) for n in names if not library_path(n).exists()]
     if not todo:
         return 0.0
-    BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = []
-    for name, out in todo:
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )))
-    failures = []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode == 0:
-            os.replace(tmp, out)
-        else:
-            failures.append(f"{name}.cu (rc={proc.returncode}):\n{log}")
-    if failures:
-        raise RuntimeError("nvcc failed for " + "\n".join(failures))
+    compile_all([(f"{name}.cu", out, lambda tmp, name=name: [
+        nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]) for name, out in todo], "nvcc")
     return time.monotonic() - t0
 
 
@@ -146,9 +130,10 @@ def count_launch(wrapper) -> None:
 
 if __name__ == "__main__":
     # ``python stateright_tpu_torch/ops/_cuda.py build``: build every
-    # missing library (the checker service's compile-on-admit step).
-    import sys
-
+    # missing library, the kernels' and the native host kit's (the checker
+    # service's compile-on-admit step).
     if sys.argv[1:] != ["build"]:
         sys.exit("usage: _cuda.py build")
-    print(f"built in {build():.1f}s", flush=True)
+    from stateright_tpu_torch import native
+
+    print(f"built in {build() + native.build():.1f}s", flush=True)

@@ -224,6 +224,15 @@ def occupied_rows(ds: DeltaSet):
     return list(to_u32(rows))
 
 
+def insert_lane_words(ds: DeltaSet, m: int) -> int:
+    """32-bit words that one insert of an ``m``-lane batch carries as sort
+    operands: the reference's ``insert_lane_words`` on an accelerator
+    (``"sort"`` values): the 5-word presort and 2-word inverse a lane, and
+    the delta tier's 4-word merge a row of the tier and the batch. The flush
+    (:func:`maintain`) runs between levels and is not counted."""
+    return m * 5 + m * 2 + (ds.delta_capacity + m) * 4
+
+
 def grow(ds: DeltaSet, new_capacity: int) -> DeltaSet:
     """Grow the main tier and rescale the delta tier, folding the delta's
     rows into main. On the host, as the reference's: the minimum delta

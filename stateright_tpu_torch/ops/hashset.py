@@ -310,6 +310,12 @@ def occupied_rows(hs: HashSet):
     return [(a >> np.uint64(s) & m32).astype(np.uint32) for a in (k, v) for s in (32, 0)]
 
 
+def insert_lane_words(hs: HashSet, m: int) -> int:
+    """0: the hash set sorts nothing (the reference's ``lane_words`` of its
+    hash set, whose rows engine sorts no lanes)."""
+    return 0
+
+
 def from_entries(key_hi, key_lo, val_hi, val_lo, capacity: int, device,
                  max_probes: int = 32) -> HashSet:
     """Rebuild by insertion (checkpoint restore, as the reference's

@@ -126,6 +126,26 @@ def occupied_rows(ss: SortedSet):
     return list(to_u32(torch.stack([p[:n] for p in ss[:4]])))
 
 
+#: The reference's merge-kernel block (``STPU_PALLAS_BLOCK``'s default): its
+#: insert runs the kernel where the capacity and the batch are multiples of
+#: the block, and its sort lowering below that.
+PALLAS_BLOCK = 512
+
+
+def insert_lane_words(ss: SortedSet, m: int) -> int:
+    """32-bit words that one insert of an ``m``-lane batch at this capacity
+    carries as sort operands: the reference's ``insert_lane_words`` (its
+    cost-law telemetry, ``level_log``'s ``lane_words``) under the setting
+    whose engine runs the merge kernel, ``STPU_SORTEDSET_INSERT=pallas`` on
+    an accelerator (``"sort"`` values). Where its kernel runs, the
+    batch-scale presort and inverse: 7 words a lane; at shapes it refuses,
+    its sort lowering: 12 words a row of the table and the batch."""
+    cap = ss.capacity
+    if cap % PALLAS_BLOCK == 0 and m % PALLAS_BLOCK == 0 and min(cap, m) >= PALLAS_BLOCK:
+        return m * 7
+    return (cap + m) * 12
+
+
 def grow(ss: SortedSet, new_capacity: int) -> SortedSet:
     """Capacity growth is a plain copy — the sorted invariant does not
     depend on the capacity."""

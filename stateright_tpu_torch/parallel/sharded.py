@@ -61,7 +61,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import graphs, obs
+from .. import graphs, native, obs
 from ..backend import resolve_device
 from ..checker.base import Checker
 from ..checkpoint import AutoCheckpointer, load_checkpoint, validate_model, validate_symmetry
@@ -1074,13 +1074,10 @@ class ShardedXlaChecker(Checker):
             **self._counters.snapshot(),
         }
 
-    def _parent_map(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Every shard's occupied rows on the host as 64-bit ``(keys,
-        parents)``, sorted by key (``XlaChecker._parent_map``)."""
-        kh, kl, vh, vl = (a.astype(np.uint64) for a in self._occupied_rows())
-        keys = (kh << np.uint64(32)) | kl
-        order = np.argsort(keys, kind="stable")
-        return keys[order], ((vh << np.uint64(32)) | vl)[order]
+    def _parent_map(self) -> native.AnyParentMap:
+        """One ``native.ParentMap`` over every shard's occupied rows
+        (``XlaChecker._parent_map``)."""
+        return native.ParentMap(*self._occupied_rows())
 
     def discoveries(self):
         parents = self._parent_map()

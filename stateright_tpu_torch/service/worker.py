@@ -20,7 +20,8 @@ Engines:
 - ``--engine xla`` (default): ``spawn_xla`` with per-job auto-checkpointing
   (``--checkpoint``/``--every``/``--keep``), resume (``--resume``) and a
   per-job metrics time series (``--metrics``). On the card the worker
-  first builds any missing kernel library (``ops._cuda.build()``) under a
+  first builds any missing kernel library (``ops._cuda.build()``) and the
+  native host kit that witness paths walk (``native.build()``) under a
   ``phase="dispatch"`` heartbeat that flags ``compile``, so tens of seconds
   of ``nvcc`` get the supervisor's stretched leash instead of reading as a
   wedge; the port keeps no program cache across processes, so every worker
@@ -90,18 +91,19 @@ def _resolve_device(args):
 
 def _build_kernels(device) -> float:
     """The port's counterpart of the reference's compile-cache step: build
-    every missing kernel library before the first dispatch, under a
-    ``compile``-flagged dispatch beat (the supervisor's stretched leash).
-    Returns the build's seconds (0 on the CPU or with every library built)."""
+    every missing kernel library and the native host kit before the first
+    dispatch, under a ``compile``-flagged dispatch beat (the supervisor's
+    stretched leash), so that no job compiles mid-run. Returns the build's
+    seconds (0 on the CPU or with every library built)."""
     if device.type != "cuda":
         return 0.0
-    from stateright_tpu_torch import obs
+    from stateright_tpu_torch import native, obs
     from stateright_tpu_torch.ops import _cuda
 
     hb = obs.resolve_heartbeat(None)
     if hb is not None:
-        hb.beat("dispatch", compile=True, build=list(_cuda.SOURCES))
-    seconds = _cuda.build()
+        hb.beat("dispatch", compile=True, build=[*_cuda.SOURCES, "hostkit"])
+    seconds = _cuda.build() + native.build()
     if hb is not None:
         hb.commit()
     return seconds

@@ -125,7 +125,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from . import graphs, obs
+from . import graphs, native, obs
 from .backend import resolve_device
 from .carry import state_from_checkpoint
 from .checker.base import Checker
@@ -1214,6 +1214,7 @@ class XlaChecker(Checker):
             "sym": self._sym_tag,
             "bucket": run_cap,
             "cand_cap": cand_cap,
+            "lane_words": self._level_lane_words(cand_cap),
         })
         self._frontier, self._frontier_ebits, self._table = nf, ne, table
         self._frontier_count = ncount
@@ -1365,6 +1366,7 @@ class XlaChecker(Checker):
                 "sym": self._sym_tag,
                 "bucket": int(lvl[3, slot]),
                 "cand_cap": int(lvl[4, slot]),
+                "lane_words": self._level_lane_words(int(lvl[4, slot])),
                 **(extra(slot) if extra else {}),
             }
             for i, slot in enumerate(slots)
@@ -1374,6 +1376,16 @@ class XlaChecker(Checker):
         self._depth += committed
         if committed:
             self._max_depth = max(self._max_depth, self._depth - 1)
+
+    def _level_lane_words(self, cand_cap: int) -> int:
+        """``level_log``'s ``lane_words``: the 32-bit words that one level's
+        visited-set insert of ``cand_cap`` candidates carries as sort
+        operands at the table's capacity, as the reference's
+        ``_level_lane_words`` counts them on an accelerator with its merge
+        kernel (``STPU_SORTEDSET_INSERT=pallas``): the compaction kernel
+        sorts nothing, and the insert's words are the structure's
+        ``insert_lane_words``."""
+        return self._ds.insert_lane_words(self._table, cand_cap)
 
     def _settle(self) -> bool:
         """The quiescent point after a block's levels are ingested (an
@@ -1670,18 +1682,11 @@ class XlaChecker(Checker):
             for name, fp64 in self._found_names.items()
         }
 
-    def _parent_map(self) -> Tuple[np.ndarray, np.ndarray]:
-        """The visited set's occupied rows on the host as 64-bit ``(keys,
-        parents)``, sorted by key, so that a ``searchsorted`` finds a
-        parent: the sorted set's rows are sorted already, the hash and
-        delta sets' are sorted here."""
-        kh, kl, vh, vl = (a.astype(np.uint64) for a in self._ds.occupied_rows(self._table))
-        keys = (kh << np.uint64(32)) | kl
-        vals = (vh << np.uint64(32)) | vl
-        if self._dedup != "sorted":
-            order = np.argsort(keys, kind="stable")
-            keys, vals = keys[order], vals[order]
-        return keys, vals
+    def _parent_map(self) -> native.AnyParentMap:
+        """The visited set's occupied rows, read to the host in one copy
+        (selected on the device), indexed fp64 -> parent fp64 by the native
+        host kit (``native.ParentMap``, as the reference's)."""
+        return native.ParentMap(*self._ds.occupied_rows(self._table))
 
     def _host_fps(self, states: List[Any]) -> List[int]:
         """Fingerprints of object states through the packed codec, as the
@@ -1691,8 +1696,8 @@ class XlaChecker(Checker):
 
     def _row_fps(self, rows: np.ndarray) -> List[int]:
         """64-bit fingerprints of the dedup keys of host ``[N, W]`` uint32
-        rows: one batched call, on the host. Under symmetry the key is the
-        canonical form, by the spec's host twin or, on the
+        rows: one batched call of the native host kit. Under symmetry the
+        key is the canonical form, by the spec's host twin or, on the
         ``packed_representative`` path, by the object ``representative()``
         (the reference's ``_dedup_words_host``)."""
         if self._sym_canon_host is not None:
@@ -1703,27 +1708,21 @@ class XlaChecker(Checker):
                 np.asarray(model.pack(model.unpack(row).representative()), dtype=np.uint32)
                 for row in rows
             ])
-        hi, lo = fphash.fingerprint_words(from_u32(rows, "cpu"))
+        hi, lo = native.fingerprint_words(rows)
         return [(h << 32) | l for h, l in zip(hi.tolist(), lo.tolist())]
 
     def _path_for(self, fp64: int, parents) -> Path:
         """Walks parent fingerprints back to an init state, then re-executes
         the object model forward (bfs.rs:430-459, path.rs:20-97), matching
-        states by their packed fingerprints."""
-        keys, vals = parents
-        chain: List[int] = []
-        cur = fp64
-        while cur != 0:
-            i = int(np.searchsorted(keys, np.uint64(cur)))
-            if i >= len(keys) or int(keys[i]) != cur:
-                raise RuntimeError(
-                    f"fingerprint {cur:#x} missing from the visited table during "
-                    "path reconstruction; packed model host/device codecs disagree"
-                )
-            if len(chain) > len(keys):
-                raise RuntimeError("parent chain has a cycle")
-            chain.append(cur)
-            cur = int(vals[i])
+        states by their packed fingerprints. ``parents`` is a
+        ``native.ParentMap``; the walk back is one native call."""
+        try:
+            chain: List[int] = parents.chain(fp64)
+        except KeyError as e:
+            raise RuntimeError(
+                f"{e.args[0]} during path reconstruction; packed model "
+                "host/device codecs disagree"
+            ) from None
         chain.reverse()
 
         model = self._model

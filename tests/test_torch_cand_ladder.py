@@ -302,3 +302,29 @@ def test_the_gated_level_reads_nothing_on_the_host_at_each_rung(monkeypatch):
             c._gated_level(carry, 4096, cand_cap, rows)
             with pytest.raises(RuntimeError, match="meta"):
                 bool(carry.s[S["live"]])
+
+
+def test_lane_words_drop_at_narrow_levels():
+    """``tests/test_cand_ladder.py::test_lane_words_drop_at_narrow_levels``
+    on the port: with the ladder on, the median level of 2pc rm=4 carries
+    at least 2x fewer sorted lane words than the one-rung block's (the
+    merge kernel's batch-scale words, ``level_log``'s ``lane_words``), at
+    identical counts, discoveries and dispatch count; no level runs wider
+    than the one-rung block's widest candidate cap."""
+
+    def summary(c):
+        return (c.state_count(), c.unique_state_count(), c.max_depth(),
+                {n: p.into_actions() for n, p in c.discoveries().items()})
+
+    model = port.PackedTwoPhaseSys(4)
+    off = model.checker().spawn_xla(dedup="sorted", cand_ladder=1, **KW, **CPU).join()
+    on = model.checker().spawn_xla(dedup="sorted", cand_ladder=3, **KW, **CPU).join()
+    assert summary(on) == summary(off)
+    assert len(on.dispatch_log) == len(off.dispatch_log)
+    lw_off = sorted(r["lane_words"] for r in off.level_log)
+    lw_on = sorted(r["lane_words"] for r in on.level_log)
+    med = len(lw_off) // 2
+    assert lw_on[med] * 2 <= lw_off[med], (lw_on, lw_off)
+    peak_cand = max(r["cand_cap"] for r in off.level_log)
+    for r in on.level_log:
+        assert r["cand_cap"] <= peak_cand

@@ -19,7 +19,10 @@ the kernel's yardsticks, and not engine options (ROADMAP A11):
 - checkpoints carry no lowering, in either package, and a file saved
   under one lowering resumes in the other package;
 - under the hash set the port runs the kernel, where the reference
-  refuses ``"pallas"`` (its rows engine).
+  refuses ``"pallas"`` (its rows engine);
+- every ``level_log`` row of the rm=3 runs under the sorted, delta and
+  hash sets carries ``lane_words``, the reference's ``insert_lane_words``
+  under its merge kernel (ROADMAP C1).
 
 The reference runs are the expensive part (a CPU compile each), so each
 configuration runs once, in module-scoped fixtures. Everything is exact
@@ -37,6 +40,7 @@ from stateright_tpu.models.paxos import PackedPaxos as RefPaxos
 from stateright_tpu_torch import checkpoint as ck
 from stateright_tpu_torch.models import two_phase_commit as port
 from stateright_tpu_torch.models.paxos import PackedPaxos
+from stateright_tpu_torch.ops import sortedset as port_ss
 from stateright_tpu_torch.ops.compact import LOWERINGS, compact_plain
 from stateright_tpu_torch.ops.words import DTYPE
 from stateright_tpu_torch.xla import UNPORTED_COMPACTIONS
@@ -222,6 +226,55 @@ def test_rm3_equals_the_references_run_under_each_lowering(ref_rm3, port_rm3, co
     c.assert_properties()
     for name, path in c.discoveries().items():
         c.assert_discovery(name, path.into_actions())
+
+
+@pytest.fixture(scope="module")
+def port_rm3_by_structure(port_rm3):
+    """The port's rm=3 under each visited set at the lowering tests'
+    capacities (the sorted run is ``port_rm3``)."""
+    spawn = port.PackedTwoPhaseSys(3).checker().spawn_xla
+    return {"sorted": port_rm3,
+            **{d: spawn(**dict(KW, dedup=d), **CPU).join() for d in ("delta", "hash")}}
+
+
+@pytest.mark.parametrize("dedup", ("sorted", "delta", "hash"))
+def test_lane_words_are_the_references_under_its_merge_kernel(port_rm3_by_structure, dedup,
+                                                             monkeypatch):
+    """ROADMAP C1: every ``level_log`` row carries ``lane_words``, the
+    reference's ``insert_lane_words`` at the row's table capacity and
+    ``cand_cap`` under the setting in which its engine runs the merge
+    kernel (``STPU_SORTEDSET_INSERT=pallas``, ``"sort"`` values, as on an
+    accelerator; ``"pallas"`` compaction adds no term), and 0 under the
+    hash set (the reference's rows engine). No reference run: its
+    functions, with its module's knobs set for the test."""
+    from types import SimpleNamespace
+
+    from stateright_tpu.ops import deltaset as ref_ds
+    from stateright_tpu.ops import sortedset as ref_ss
+
+    monkeypatch.setattr(ref_ss, "INSERT_VIA", "pallas")
+    monkeypatch.setattr(ref_ss, "VALUES_VIA", "sort")
+    c = port_rm3_by_structure[dedup]
+    assert _final(c) == RM3
+    t = c._table
+    if dedup != "hash":
+        # No growth: every row's table is the final one.
+        assert c.metrics()["table_grows"] == 0
+    for r in c.level_log:
+        if dedup == "sorted":
+            want = ref_ss.insert_lane_words(SimpleNamespace(capacity=t.capacity), r["cand_cap"])
+        elif dedup == "delta":
+            want = ref_ds.insert_lane_words(SimpleNamespace(delta_capacity=t.delta_capacity),
+                                            r["cand_cap"])
+        else:
+            want = 0
+        assert r["lane_words"] == want, (dedup, r)
+    if dedup == "sorted":
+        # Both of the reference's branches: the kernel's batch words at the
+        # run's 2,048-row candidate buffers, its sort lowering below 512.
+        assert {r["lane_words"] for r in c.level_log} == {2_048 * 7}
+        assert port_ss.insert_lane_words(t, 256) == (t.capacity + 256) * 12 == ref_ss.insert_lane_words(
+            SimpleNamespace(capacity=t.capacity), 256)
 
 
 @pytest.fixture(scope="module")

@@ -424,6 +424,78 @@ def test_one_model_instance_runs_every_structure_and_a_repeat_makes_no_program()
     assert all(k[6] == dedup for dedup, new in runs[:3] for k in new)
 
 
+def test_one_paxos_instance_holds_two_graph_sets():
+    """ROADMAP C2 at a CPU size: one Paxos 2c/3s instance checked to depth
+    10 under the sorted set, then the hash set, then the sorted set again,
+    each equal to the first level by level and in its witnesses; the hash
+    run makes its own programs beside the sorted run's and the third check
+    makes none. (The card's case, a second graph set at Paxos 3c/3s's
+    widest bucket on one instance, is ``chip_smoke.py``'s ``paxos3_hash``:
+    CUDA graphs and their memory pool exist only there.)"""
+    from stateright_tpu_torch.models.paxos import PackedPaxos
+
+    def search(c):
+        return (c.state_count(), c.unique_state_count(), c.max_depth(),
+                [(r["depth"], r["frontier"], r["generated"], r["unique"]) for r in c.level_log],
+                {n: p.into_actions() for n, p in c.discoveries().items()})
+
+    m = PackedPaxos(2, 3)
+    cache = graphs.cache_for(m, torch.device("cpu"))
+    made, runs = [], []
+    for dedup in ("sorted", "hash", "sorted"):
+        before = set(cache.programs)
+        c = m.checker().target_max_depth(10).spawn_xla(dedup=dedup, **CPU).join()
+        assert c.metrics()["dedup"] == dedup
+        runs.append(search(c))
+        made.append(set(cache.programs) - before)
+    assert runs[0][:2] == (3_314, 1_919)  # the JAX engine's at this depth
+    assert runs[1] == runs[0] and runs[2] == runs[0]
+    assert made[0] and made[1] and made[2] == set()
+    assert {k[6] for k in made[1]} == {"hash"}
+    assert {k[6] for k in cache.programs} == {"sorted", "hash"}
+
+
+def test_the_capture_counts_the_idle_blocks_outside_its_own_pool(monkeypatch):
+    """A capture empties the allocator's cache first for what that can hand
+    back and its own pool cannot reuse: the unused blocks on the capture's
+    card of the default pool and of other graph pools (a dead instance's,
+    whose pool is freed by the emptying), not its own pool's free blocks
+    (its live graphs keep them) nor another card's."""
+    mib = 1 << 20
+
+    class Pool:
+        id = (1, 4)
+
+    segments = [
+        {"device": 0, "segment_pool_id": (0, 0), "total_size": 8 * mib, "allocated_size": 2 * mib},
+        {"device": 0, "segment_pool_id": (1, 4), "total_size": 64 * mib, "allocated_size": 0},
+        {"device": 0, "segment_pool_id": (2, 7), "total_size": 16 * mib, "allocated_size": 4 * mib},
+        {"device": 1, "segment_pool_id": (0, 0), "total_size": 32 * mib, "allocated_size": 0},
+        {"device": 0, "segment_pool_id": [0, 0], "total_size": 2 * mib, "allocated_size": 2 * mib},
+    ]
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: segments)
+    assert graphs.releasable_idle(torch.device("cuda", 0), Pool()) == 18 * mib
+    assert graphs.releasable_idle(torch.device("cuda", 1), Pool()) == 32 * mib
+
+
+def test_a_growth_retires_the_graph_pool_only_when_no_graph_is_left():
+    """``ProgramCache.drop`` (a table growth) hands the graph pool back and
+    starts another only when the cache holds no graph afterwards: another
+    structure's graphs keep the pool, and an eager program holds none."""
+    cache = graphs.ProgramCache(torch.device("cpu"))
+    key = lambda cap, dedup: (64, 64, 1024, cap, 32, 0, dedup, 8, None)  # noqa: E731
+    assert not cache.holds_graph()
+    cache.programs[key(1024, "sorted")] = graphs.Program(None, graph=object())
+    cache.programs[key(4096, "hash")] = graphs.Program(None, graph=object())
+    cache.programs[key(8192, "delta")] = graphs.Program(None)
+    cache.drop((1024, 32, 0, "sorted"))
+    assert cache.holds_graph() and key(1024, "sorted") not in cache.programs
+    cache.drop((4096, 32, 0, "hash"))
+    assert not cache.holds_graph() and list(cache.programs) == [key(8192, "delta")]
+    cache.shard_programs[("shard",)] = graphs.Program(None, graph=object())
+    assert cache.holds_graph()
+
+
 def test_each_structure_keeps_its_own_capacity_hint(monkeypatch):
     monkeypatch.setattr(port_xla, "DEFAULT_TABLE_CAPACITY", 64)
     m = PackedTwoPhaseSys(4)

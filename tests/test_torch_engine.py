@@ -191,12 +191,17 @@ def test_port_runs_no_script_of_the_reference_package(path):
 
 
 def test_walks_cover_the_fleet_and_the_tools():
-    """The two walks above glob the whole package: the fleet and the
-    port's tools (the chaos harness) are among the files they check."""
+    """The two walks above glob the whole package: the fleet, the port's
+    tools (the chaos harness, the trace bundle, the graph memory probe) and
+    the native host kit are among the files they check."""
     walked = {str(p.relative_to(ROOT)) for p in (ROOT / "stateright_tpu_torch").rglob("*.py")}
     assert {"stateright_tpu_torch/service/fleet.py",
             "stateright_tpu_torch/tools/__init__.py",
-            "stateright_tpu_torch/tools/service_chaos.py"} <= walked
+            "stateright_tpu_torch/tools/service_chaos.py",
+            "stateright_tpu_torch/tools/trace_bundle.py",
+            "stateright_tpu_torch/tools/graph_memory.py",
+            "stateright_tpu_torch/native/__init__.py",
+            "stateright_tpu_torch/_build.py"} <= walked
 
 
 class _SkipBase:

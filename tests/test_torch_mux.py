@@ -275,6 +275,25 @@ def test_mux_lane_telemetry():
     assert m["levels_committed"] == len(lanes[1].level_log)
 
 
+@pytest.mark.parametrize("dedup", ["sorted", "hash"])
+def test_mux_rows_carry_lane_words(dedup):
+    """ROADMAP C1 on the mux's rows (the reference's ``xla_mux.py:419``):
+    every lane's row carries ``lane_words``, the lane's structure's words
+    at the row's candidate cap and the lane's table, as a solo run's
+    rows do."""
+    model = PackedTwoPhaseSys(3)
+    lanes = _lanes(model, 2, dedup)
+    MuxChecker(lanes).run_to_completion()
+    solo = model.checker().spawn_xla(dedup=dedup, **KW).join()
+    for ln in lanes:
+        assert ln.metrics()["table_grows"] == 0
+        assert [r["lane_words"] for r in ln.level_log] == [
+            ln._ds.insert_lane_words(ln._table, r["cand_cap"]) for r in ln.level_log]
+        assert all((r["lane_words"] > 0) == (dedup == "sorted") and r["lanes"] == 2
+                   for r in ln.level_log)
+    assert {r["lane_words"] for r in solo.level_log} >= {r["lane_words"] for r in lanes[0].level_log}
+
+
 def test_mux_spans_and_program_keys(tmp_path):
     """Dispatch spans have flavor ``mux`` with the lanes; the mux program is
     keyed on its lanes, bucket, candidate cap and shape, and a table growth
