@@ -69,7 +69,7 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    also to depth 16 with its peak memory);
 7. drives single-copy-register: 3c/1s (``EXPECTED_MATRIX``'s 6,778 /
    4,243) and the ordered 2c variant, each equal to the CPU level by level;
-   then ``PackedSingleCopyRegister(4, 1, device_exact=False)`` to depth 6
+   then ``PackedSingleCopyRegister(4, 1, device_exact=False)`` to depth 5
    and ``(4, 2, device_exact=False)`` to its linearizability
    counterexample through the host-verified path (the sampled pass on the
    card, the host confirming), equal to the CPU in counts, levels,
@@ -204,7 +204,17 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    rm=8 checkpoint saved at D = 8 and resumed on the single-chip engine
    and at D = 4, and a single-chip file resumed at D = 8; and
    (``shard_kernels``) every kernel call of the widest sharded level held
-   against its plain version, the widest shard's timed;
+   against its plain version, the widest shard's timed; then the mesh over
+   several processes: two ranks of ``python -m
+   stateright_tpu_torch.tools.mesh_worker`` on this card, over gloo since
+   they share it (``mesh_ranks_rm8``: rm=8 at 2 ranks x 4 shards cold and
+   warm, exact, equal on both ranks and every shard's planes equal to the
+   D = 8 run's above, rank 0's mid-run file resumed exactly on the
+   single-chip engine, rank 1 writing no file; each rank's walls, launches
+   by kernel, peak memory and the exchange's seconds, legs and bytes, at
+   the widest level and summed; ``mesh_ranks_rm5``: rm=5 at 2 x 2 shards
+   under the hash set and under the delta set with flushes and a growth,
+   each equal shard for shard to the one-process D = 4 run);
 15. holds the reference's other compaction lowerings, the kernel's
    yardsticks (``compaction_ops``; the engine does not run them):
    ``compact_gather``, ``compact_sort`` and ``compact_bsearch`` against
@@ -234,6 +244,7 @@ import multiprocessing
 import os
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -284,7 +295,7 @@ from stateright_tpu_torch.xla import XlaChecker
 from stateright_tpu_torch.xla_mux import MuxChecker
 from stateright_tpu_torch.service import CheckerService, ServiceConfig
 from stateright_tpu_torch.service.registry import resolve as resolve_spec
-from stateright_tpu_torch.tools import trace_bundle
+from stateright_tpu_torch.tools import mesh_worker, trace_bundle
 
 #: H100 SXM device-memory rate, bytes per second (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -1488,7 +1499,7 @@ def same_search(gpu, cpu, what: str) -> None:
 def scr_phase() -> dict:
     """Single-copy-register on the card: 3c/1s (exact) and the ordered 2c
     variant, each equal to the CPU level by level; then the host-verified
-    path: ``(4, 1, device_exact=False)`` to depth 6 and ``(4, 2,
+    path: ``(4, 1, device_exact=False)`` to depth 5 and ``(4, 2,
     device_exact=False)`` to its linearizability counterexample, equal to
     the CPU in counts, levels, discoveries and ``hv_stats``. Returns the
     launches of each run and the shape of each host-verified run's widest
@@ -1496,7 +1507,7 @@ def scr_phase() -> dict:
     cases = (
         ("3c1s", lambda: PackedSingleCopyRegister(3, 1), None),
         ("ordered_2c", lambda: PackedSingleCopyRegisterOrdered(2), None),
-        ("4c1s_hv_depth6", lambda: PackedSingleCopyRegister(4, 1, device_exact=False), 6),
+        ("4c1s_hv_depth5", lambda: PackedSingleCopyRegister(4, 1, device_exact=False), 5),
         ("4c2s_hv", lambda: PackedSingleCopyRegister(4, 2, device_exact=False), None),
     )
     out, launches, hv_shapes = {}, {}, {}
@@ -4616,6 +4627,9 @@ def sharded_phase(main_levels: list, main_depth: int):
                 require(run == "cold" or c.metrics()["graph_captures"] == 0, f"{tag}: captured")
                 continue
             exact(c, tag)
+            if shards == 8:
+                # The rank mesh's phases hold every shard against these.
+                SHARD_D8[run] = {**mesh_worker.shard_digests(c), "wall_s": wall}
             lines[tag] = {**shard_line(c, wall, got, tag, expected), "peak_mem_gib": peak / 2**30,
                           "peak_above_base_gib": (peak - base) / 2**30}
             if run == "warm":
@@ -4739,6 +4753,172 @@ def sharded_phase(main_levels: list, main_depth: int):
     return launches, kernels
 
 
+
+
+#: The one-process D = 8 run's shard digests (``mesh_worker.shard_digests``)
+#: and walls, cold and warm, from :func:`sharded_phase`.
+SHARD_D8 = {}
+#: The ranks of the rank mesh's phases, all on this card (so over gloo).
+MESH_RANKS = 2
+#: The rank pair's time limit, seconds.
+MESH_TIMEOUT_S = 420
+
+
+def mesh_ranks(configs, out: str, device=None) -> tuple:
+    """:data:`MESH_RANKS` processes of ``python -m
+    stateright_tpu_torch.tools.mesh_worker``, the ranks of one group, run
+    ``configs`` one after another; with no ``device`` each rank takes
+    ``cuda:(rank % cards)``, so on one card both share it and the backend
+    chosen is gloo. Both must exit 0 with one ``RESULT`` a config, the same
+    ``result`` on each. Kills both on any failure. Returns ``({config:
+    [each rank's RESULT]}, the pair's wall)``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    extra = [] if device is None else ["--device", device]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "stateright_tpu_torch.tools.mesh_worker", "--rank", str(r),
+         "--world", str(MESH_RANKS), "--port", str(port), "--out", out, *extra, *configs],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_RANKS)]
+    outs = [""] * MESH_RANKS
+    try:
+        with ThreadPoolExecutor(MESH_RANKS) as ex:
+            for r, text in enumerate(ex.map(
+                    lambda p: p.communicate(timeout=MESH_TIMEOUT_S)[0], procs)):
+                outs[r] = text
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    lines = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"mesh rank {r}: exit {p.returncode}\n{text[-6000:]}")
+        lines.append({ln["config"]: ln for ln in (json.loads(x[len("RESULT "):])
+                                                  for x in text.splitlines()
+                                                  if x.startswith("RESULT "))})
+    got = {}
+    for name in configs:
+        got[name] = [by_rank.get(name) for by_rank in lines]
+        require(all(x is not None for x in got[name]), f"mesh {name}: a rank printed no result")
+        require(all(x["result"] == got[name][0]["result"] for x in got[name]),
+                f"mesh {name}: the ranks' results differ")
+        require(all(x["rank"]["backend"] == "gloo" for x in got[name]), f"mesh {name}: backend")
+    return got, wall
+
+
+def rank_launches(lines, dedup: str) -> dict:
+    """Launches of ``dedup``'s kernels, summed over every rank and run; each
+    kernel must have launched on every rank."""
+    total = {}
+    for line in lines:
+        for run in line["rank"]["runs"]:
+            for name in PATH_KERNELS[dedup]:
+                require(run["launches"][name] > 0,
+                        f"rank {line['rank']['rank']}: {name} never launched")
+                total[name] = total.get(name, 0) + run["launches"][name]
+    return total
+
+
+def rank_view(lines) -> dict:
+    """Each rank's own figures, by run: wall, launches, peak memory, the
+    exchange (seconds and bytes summed, the widest level's), captures and
+    growths."""
+    return {f"rank{line['rank']['rank']}": {"device": line["rank"]["device"],
+                                            "backend": line["rank"]["backend"],
+                                            "runs": line["rank"]["runs"]} for line in lines}
+
+
+def mesh_ranks_phases(model, device=None, rm: int = 8) -> dict:
+    """The sharded engine over :data:`MESH_RANKS` processes on this card
+    (``mesh_ranks``): ``mesh_ranks_rm8``, 2pc rm=8 at 2 ranks x 4 shards
+    under the sorted set, cold (auto-checkpointing on rank 0) and warm on one
+    model instance, exact, equal on both ranks and, shard for shard, to the
+    one-process D = 8 run (:data:`SHARD_D8`; the cold run starts from
+    ``mesh_worker``'s smaller frontier, whose growths end blocks mid-run,
+    and which the results do not depend on); rank 0's newest mid-run file
+    resumed exactly on ``model`` by the single-chip engine, and rank 1's
+    directory empty; then ``mesh_ranks_rm5``: rm=5 at 2 ranks x 2 shards
+    under the hash and the delta set (with flushes and a growth), each
+    exact and equal to the one-process D = 4 run on this card (every
+    shard's sorted rows; under the delta set also its planes: the hash
+    kernel may place contending keys in other slots). Returns the launches
+    by path."""
+    out = tempfile.mkdtemp(prefix="mesh_", dir=CKPT_DIR)
+    gc.collect()
+    if device is None:
+        torch.cuda.empty_cache()
+    got, pair_wall = mesh_ranks([f"rm{rm}", "rm5-hash", "rm5-delta"], out, device)
+    launches = {}
+    rm8 = got[f"rm{rm}"]
+    r = rm8[0]["result"]
+    require((r["states"], r["unique"]) == EXPECTED_2PC[rm], f"rank mesh rm={rm}: {r}")
+    require(r["mesh_backend"] == "gloo", "rank mesh rm=8: the backend")
+    for run in ("cold", "warm"):
+        require({k: r[k] for k in ("planes", "rows")} == {
+            k: SHARD_D8[run][k] for k in ("planes", "rows")},
+            f"rank mesh rm=8: the shards differ from the one-process D = 8 {run} run")
+    require(all(run["graph_captures"] == 0 for line in rm8 for run in line["rank"]["runs"][1:]),
+            "rank mesh rm=8: the warm run captured")
+    rank1 = os.path.join(out, "rank1")
+    require(rm8[1]["rank"]["files"] == [] and not os.listdir(rank1), "rank 1 wrote a file")
+    files = rotations(os.path.join(out, "rank0", f"rm{rm}.npz"))
+    mid = next((f for f in files if not load_checkpoint(f)["meta"]["done"]), None)
+    require(mid is not None, f"rank mesh rm={rm}: no mid-run checkpoint among {files}")
+    meta = load_checkpoint(mid)["meta"]
+    t0 = time.perf_counter()
+    zero_launches()
+    resumed = model.checker().spawn_xla(checkpoint=mid, **({} if device is None else
+                                                            {"device": device})).join()
+    resume_wall = time.perf_counter() - t0
+    launches["mesh_ranks_rm8_resumed"] = launches_now()
+    require((resumed.state_count(), resumed.unique_state_count()) == (r["states"], r["unique"]),
+            "rank mesh rm=8: the resumed run's counts")
+    check_paths(resumed)
+    audited(resumed, "rank mesh rm=8 resumed")
+    launches["mesh_ranks_rm8"] = rank_launches(rm8, "sorted")
+    warm = [line["rank"]["runs"][1] for line in rm8]
+    emit({"phase": "mesh_ranks_rm8", "nvidia_smi": SMI, "result": r, "pair_wall_s": pair_wall,
+          "cold_wall_s": [line["rank"]["runs"][0]["wall_s"] for line in rm8],
+          "warm_wall_s": [run["wall_s"] for run in warm],
+          "one_process_d8_wall_s": {k: v["wall_s"] for k, v in SHARD_D8.items()},
+          "exchange_warm": [run["exchange"] for run in warm],
+          "peak_mem_gib": [[run["peak_mem_gib"] for run in line["rank"]["runs"]] for line in rm8],
+          "launches": launches["mesh_ranks_rm8"], "ranks": rank_view(rm8),
+          "checkpoint": {"file": os.path.basename(mid), "depth": meta["depth"],
+                         "rotations": len(files), "resumed_wall_s": resume_wall,
+                         "resumed_captures": resumed.metrics()["graph_captures"]},
+          "planes_equal_one_process": True})
+    del resumed
+    lines = {}
+    for name in ("rm5-hash", "rm5-delta"):
+        factory, shards, kw, _ = mesh_worker.CONFIGS[name]
+        dedup = kw["dedup"]
+        one, wall, one_launches = drive(factory(), mesh=default_mesh(shards, device=device), **kw)
+        launches[f"mesh_one_process_{name}"] = one_launches
+        want = mesh_worker.result_of(one)
+        pair = got[name]
+        res = pair[0]["result"]
+        keys = ("states", "unique", "depth", "paths", "levels", "rows") + (
+            ("planes",) if dedup != "hash" else ())
+        require(res["unique"] == EXPECTED_2PC[5][1] and res["states"] == EXPECTED_2PC[5][0],
+                f"rank mesh {name}: counts")
+        require({k: res[k] for k in keys} == {k: want[k] for k in keys},
+                f"rank mesh {name}: differs from the one-process D = {shards} run")
+        grows = [line["rank"]["runs"][0]["grows"] for line in pair]
+        require(dedup != "delta" or all(g["delta_flushes"] > 0 and g["table_grows"] > 0
+                                        for g in grows), f"rank mesh {name}: no flush or growth")
+        launches[f"mesh_ranks_{name}"] = rank_launches(pair, dedup)
+        lines[name] = {"result": res, "one_process_wall_s": wall,
+                       "planes_equal": res["planes"] == want["planes"], "grows": grows,
+                       "launches": launches[f"mesh_ranks_{name}"], "ranks": rank_view(pair)}
+    emit({"phase": "mesh_ranks_rm5", "nvidia_smi": SMI, **lines})
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
 
 
 def call_peak_gib(fn) -> float:
@@ -4883,6 +5063,7 @@ def run_phases() -> int:
     main_levels = [(r["depth"], r["frontier"], r["generated"], r["unique"]) for r in checker.level_log]
     shard_launches, shk = sharded_phase(main_levels, checker.max_depth())
     new_paths.update(shard_launches)
+    new_paths.update(mesh_ranks_phases(model))
     rng = np.random.default_rng(2024)
     b1 = compact_phase(checker, rng)
     m_main = max(r["cand_cap"] for r in checker.level_log)

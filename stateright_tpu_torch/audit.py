@@ -39,11 +39,14 @@ def audit_table(checker) -> Dict[str, Any]:
     ``entries != unique_count`` with no duplicates would instead show lost
     entries (a growth or rehash dropping keys) or a counter fault: another
     failure, also caught here. On the sharded engine the planes of every
-    shard are read together, so a key stored by two shards counts twice."""
-    tables = getattr(checker, "_tables", None) or [checker._table]
-    keys = np.concatenate([
-        (to_u32(t.key_hi).astype(np.uint64) << np.uint64(32)) | to_u32(t.key_lo) for t in tables
-    ])
+    shard are read together, so a key stored by two shards counts twice; on
+    a mesh over several processes they are gathered from every rank (a
+    collective every rank takes), so the audit is the same on each."""
+    if hasattr(checker, "_key_planes"):
+        hi, lo = checker._key_planes()
+    else:
+        hi, lo = to_u32(checker._table.key_hi), to_u32(checker._table.key_lo)
+    keys = ((hi.astype(np.uint64) << np.uint64(32)) | lo).reshape(-1)
     live = keys[keys != 0]  # EMPTY is (0, 0); fphash never emits it
     entries = int(live.size)
     distinct = int(np.unique(live).size)

@@ -96,17 +96,20 @@ class CheckerBuilder:
         on the device (``stateright_tpu_torch.xla.XlaChecker``).
 
         With ``mesh`` (``stateright_tpu_torch.parallel.default_mesh(D)``: D
-        shards on one device) of more than one shard, the frontier and the
-        visited set shard by fingerprint ownership and each level routes
-        every candidate to its owner (``parallel.ShardedXlaChecker``). It
+        shards on one device, or, under ``parallel.distributed.initialize``,
+        D shards over the ranks of a process group, each rank's on its own
+        device) of more than one shard, the frontier and the visited set
+        shard by fingerprint ownership and each level routes every
+        candidate to its owner (``parallel.ShardedXlaChecker``). It
         takes ``frontier_capacity``, ``table_capacity`` (over all shards),
         ``route_capacity`` (slots a source and destination shard; by
         default four times a shard's grid over D), ``levels_per_dispatch``,
         ``dedup``, ``max_probes``, ``symmetry``, ``host_verified_cap``,
         ``visit_cap``, the checkpoint and the observability keywords below;
         the single-chip tuning knobs do not apply there. A ``device`` must
-        be the mesh's. A one-shard mesh runs the single-chip engine on the
-        mesh's device (``route_capacity`` ignored).
+        be the mesh's (on a rank mesh, this rank's). A one-shard mesh runs
+        the single-chip engine on the mesh's device (``route_capacity``
+        ignored).
 
         Keyword arguments go to ``XlaChecker``: ``device`` (CUDA unless ``"cpu"``),
         ``frontier_capacity``, ``table_capacity``, ``levels_per_dispatch``
@@ -156,7 +159,7 @@ class CheckerBuilder:
             want = kwargs.pop("device", None)
             if want is not None and torch.device(want) not in (dev, torch.device(dev.type, 0)):
                 raise ValueError(f"device={want!r} is not the mesh's device {dev}")
-            if mesh.devices.size > 1:
+            if mesh.devices.size > 1 or getattr(mesh, "ranks", None) is not None:
                 return ShardedXlaChecker(self, mesh, **kwargs)
             kwargs["device"] = dev
         kwargs.pop("route_capacity", None)  # the sharded engine's knob

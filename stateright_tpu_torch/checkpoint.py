@@ -105,7 +105,9 @@ def checkpoint_arrays(checker) -> Dict[str, np.ndarray]:
     arrays: the visited set's occupied rows in its plane order (the
     structure's ``occupied_rows``; on the sharded engine every shard's,
     shard by shard, as the reference's global planes lie) and the live
-    frontier rows with their eventually-bits (:func:`_live_frontier`)."""
+    frontier rows with their eventually-bits (:func:`_live_frontier`). On a
+    mesh over several processes both are gathered from every rank (a
+    collective every rank takes), so rank 0's file is the global file."""
     from .parallel import ShardedXlaChecker
 
     if isinstance(checker, ShardedXlaChecker):
@@ -392,10 +394,15 @@ class AutoCheckpointer:
             return depth - self._last_depth >= self.every_levels
         return time.monotonic() - self._last_time >= self.every_seconds
 
-    def maybe(self, checker) -> bool:
-        """Write a checkpoint if one is due; returns whether it wrote."""
+    def maybe(self, checker, agree=None) -> bool:
+        """Write a checkpoint if one is due; returns whether it wrote.
+        ``agree`` (a rank mesh's ``Group.any``) turns this process's
+        verdict into the one every rank takes."""
         depth = checker._depth
-        if not self.due(depth):
+        due = self.due(depth)
+        if agree is not None:
+            due = agree(due)
+        if not due:
             return False
         checker.save_checkpoint(self.path, keep=self.keep)
         self._last_depth = depth

@@ -60,6 +60,11 @@ keeps a :class:`ShardCarry` (every shard's buffers, the shard axis first)
 per :func:`shard_shape` and one program per :func:`shard_key`, whose graph
 holds every shard's level; a growth of its table or frontier drops the
 carry of the old shape and every program on it (:meth:`ProgramCache.drop_shard`).
+On a rank of a mesh over several processes the carry holds this rank's
+shards and the level is three segments with a collective between each two
+(the route exchange, then the packed reduction): a :class:`RankProgram`
+captures each segment as a graph of its own and runs the collectives
+between the replays, since a gloo collective cannot sit inside a graph.
 
 Graph replays run no Python, so the kernels' launch counters would stop
 counting: each program records how many launches of each kernel its graph
@@ -199,11 +204,25 @@ class ShardCarry:
     block scalars ``s`` in the :data:`SLOTS` layout, whose ``cc_ovf`` slot
     holds the route overflow (the mesh has no candidate buffer that
     overflows) and whose ``f_count`` is the total over the shards; and
-    the per-level telemetry ``lvl`` (total frontier, generated, unique)."""
+    the per-level telemetry ``lvl`` (total frontier, generated, unique).
+
+    On a rank of a mesh over ``world`` processes, ``shards`` is this rank's
+    count, and the carry also holds the route exchange's buffers of each
+    route width (:meth:`route`), the level's packed reduction (``red``,
+    ``reduce_width`` words, and every rank's, ``red_all``) and the
+    host-verified candidates collected by every rank this block
+    (``hv_tot`` ``[n_hv]``), which the gate reads."""
 
     def __init__(self, device, shards: int, rows: int, words: int, n_props: int, levels: int,
-                 table_capacity: int, n_hv: int = 0, hv_cap: int = 0, dedup: str = "sorted"):
+                 table_capacity: int, n_hv: int = 0, hv_cap: int = 0, dedup: str = "sorted",
+                 world: int = 1, reduce_width: int = 0):
         z = dict(dtype=DTYPE, device=device)
+        self.world = world
+        self.words = words
+        self._routes: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.red = torch.zeros(reduce_width, **z)
+        self.red_all = torch.zeros((world, reduce_width), **z)
+        self.hv_tot = torch.zeros(n_hv, **z)
         self.s = torch.zeros(len(SLOTS), **z)
         self.counts = torch.zeros(shards, **z)
         self.frontier = torch.zeros((shards, rows, words), **z)
@@ -219,6 +238,19 @@ class ShardCarry:
         self.hv_w = torch.zeros((n_hv, shards, hv_cap, words), **z)
         self.hv_f = torch.zeros((n_hv, shards, hv_cap, 2), **z)
         self.hv_c = torch.zeros((n_hv, shards), **z)
+
+    def route(self, slots: int, lanes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A rank's route buffers ``(send, recv)`` at ``slots`` slots a
+        (source, destination) shard pair, each ``[world, shards, shards,
+        lanes, slots]``: ``send[q, j, i]`` is local source shard i's batch
+        for shard j of rank q, ``recv[p, j, i]`` the batch of rank p's shard
+        i for local shard j."""
+        if slots not in self._routes:
+            shards = self.counts.shape[0]
+            shape = (self.world, shards, shards, lanes, slots)
+            self._routes[slots] = (torch.zeros(shape, dtype=DTYPE, device=self.s.device),
+                                   torch.zeros(shape, dtype=DTYPE, device=self.s.device))
+        return self._routes[slots]
 
 
 class Program:
@@ -237,6 +269,59 @@ class Program:
         self.graph.replay()
         for fn, n in self.launches:
             fn.launches += n
+
+
+class RankProgram:
+    """A rank's level of a mesh over several processes: ``segments`` run in
+    turn, ``collectives[i]`` after segment i (none after the last). Each
+    segment takes a dict it shares with the others (what one segment leaves
+    for the next). On a card each segment is a graph of its own
+    (:meth:`ProgramCache.make_rank`), the collectives running between the
+    replays; on the CPU the segments run eagerly."""
+
+    def __init__(self, carry: ShardCarry, segments, collectives):
+        self.carry = carry
+        self.segments = list(segments)
+        self.collectives = list(collectives)
+        #: The captured graphs, one a segment, or None.
+        self.graph: Optional[Tuple[object, ...]] = None
+        self.launches: Tuple[Tuple[Callable, int], ...] = ()
+        #: What the captured segments leave for each other: their outputs'
+        #: tensors, which the later graphs read, kept alive with them.
+        self.state: dict = {}
+
+    def run(self, eager: bool = False) -> None:
+        """One level: every segment and the collectives between them."""
+        state = {}
+        for i, seg in enumerate(self.segments):
+            if eager or self.graph is None:
+                seg(state)
+            else:
+                self.graph[i].replay()
+            if i < len(self.collectives):
+                self.collectives[i]()
+        if not eager and self.graph is not None:
+            for fn, n in self.launches:
+                fn.launches += n
+
+    def capture(self, pool, side: torch.cuda.Stream) -> None:
+        """Capture each segment in turn (:func:`capture`), replaying it
+        once after its capture so that what it leaves for the next segment
+        is defined before that segment's warm-up reads it; the carry's
+        budget is zeroed first, so every warm-up and replay is a dead
+        level."""
+        self.carry.s[S["budget"]] = 0
+        self.carry.s[S["live"]] = 0
+        graphs, launches = [], {}
+        for seg in self.segments:
+            graph, held = capture(lambda seg=seg: seg(self.state), pool, side)
+            graph.replay()
+            graphs.append(graph)
+            for fn, n in held:
+                launches[fn] = launches.get(fn, 0) + n
+        torch.cuda.current_stream().synchronize()
+        self.graph = tuple(graphs)
+        self.launches = tuple(launches.items())
 
 
 def capture(body: Callable[[], None], pool, side: torch.cuda.Stream) -> Tuple[object, list]:
@@ -355,13 +440,16 @@ class ProgramCache:
         self.mux_programs[key] = prog
         return prog
 
-    def shard_carry(self, key: Tuple, words: int, n_props: int, n_hv: int) -> ShardCarry:
-        """The carry of the sharded program ``key`` (:func:`shard_key`)."""
+    def shard_carry(self, key: Tuple, words: int, n_props: int, n_hv: int,
+                    reduce_width: int = 0) -> ShardCarry:
+        """The carry of the sharded program ``key`` (:func:`shard_key`): on
+        a rank of ``world`` processes, of its ``shards // world`` shards."""
         shape = shard_shape(key)
         if shape not in self.shard_carries:
-            _, shards, rows, table_capacity, levels, hv_cap, dedup = shape
-            self.shard_carries[shape] = ShardCarry(self.device, shards, rows, words, n_props,
-                                                   levels, table_capacity, n_hv, hv_cap, dedup)
+            _, shards, rows, table_capacity, levels, hv_cap, dedup, (world, _) = shape
+            self.shard_carries[shape] = ShardCarry(
+                self.device, shards // world, rows, words, n_props, levels, table_capacity, n_hv,
+                hv_cap, dedup, world=world, reduce_width=reduce_width)
         return self.shard_carries[shape]
 
     def make_shard(self, key, carry: ShardCarry, body: Callable[[], None], graph: bool) -> Program:
@@ -373,6 +461,16 @@ class ProgramCache:
             prog = Program(carry, *capture(body, self.pool, self.side))
         else:
             prog = Program(carry)
+        self.shard_programs[key] = prog
+        return prog
+
+    def make_rank(self, key, carry: ShardCarry, segments, collectives,
+                  graph: bool) -> RankProgram:
+        """The program of a rank's level (:class:`RankProgram`); with
+        ``graph``, each segment captured."""
+        prog = RankProgram(carry, segments, collectives)
+        if graph:
+            prog.capture(self.pool, self.side)
         self.shard_programs[key] = prog
         return prog
 
@@ -452,19 +550,22 @@ def mux_shape(key: Tuple) -> Tuple[int, int, int, str]:
 
 
 def shard_key(shards: int, rows: int, table_capacity: int, route: int, levels: int,
-              hv_cap: int, dedup: str, max_probes: int, sym_tag) -> Tuple:
+              hv_cap: int, dedup: str, max_probes: int, sym_tag, ranks: Tuple[int, int] = (1, 0)
+              ) -> Tuple:
     """The key of a sharded program: ``shards`` shards' levels at ``rows``
     frontier rows and ``table_capacity`` table slots a shard, ``route``
     slots a (source, destination) pair, under the checker's structure,
-    probe budget and symmetry tag."""
+    probe budget and symmetry tag, on ``ranks = (world, first)``: the world
+    size and this rank's first shard (``(1, 0)`` in one process), so that
+    a one-process program is never replayed for a rank mesh."""
     return ("shard", shards, rows, table_capacity, route, levels, hv_cap, dedup, max_probes,
-            sym_tag)
+            sym_tag, tuple(ranks))
 
 
 def shard_shape(key: Tuple) -> Tuple:
     """The carry shape ``("shard", shards, rows, table_capacity, levels,
-    hv_cap, dedup)`` of a :func:`shard_key`."""
-    return key[:4] + key[5:8]
+    hv_cap, dedup, ranks)`` of a :func:`shard_key`."""
+    return key[:4] + key[5:8] + key[10:]
 
 
 def graph_inputs(model) -> dict:

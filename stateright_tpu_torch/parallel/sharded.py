@@ -44,11 +44,44 @@ one table hint a structure). Checkpoints are layout-agnostic: a file of
 the single-chip engine, of another mesh size or of the JAX package loads
 here, and one written here loads there.
 
+**The mesh over several processes** (the reference's ``jax.distributed``
+path): under a process group (``parallel/distributed.py``),
+``default_mesh(n)`` is ``n`` global shards, each rank holding ``n / world``
+contiguous ones on its own device, and the level is split at the process
+boundary into three segments (:meth:`ShardedXlaChecker._rank_segments`):
+
+(a) each local shard's properties, grid, compactions and route buffer,
+    laid out destination-rank-major (``graphs.ShardCarry.route``);
+    ``exchange``, the buffer's ``all_to_all_single``: each owner's batch is
+    then source shard 0's K slots, then shard 1's, in *global* shard order
+    (rank x D_local + i), so its insert stores the parent the one-process
+    mesh stores;
+(b) each local owner's insert and next-frontier compaction, and one packed
+    vector of the local overflow flags, generated, unique and frontier
+    counts, host-verified candidate counts and election keys (each a
+    ``fold_key`` of the shard's winner, so that one max elects the largest
+    ``fp_hi``, then ``fp_lo``); its all-gather;
+(c) the commit, or the undo of every hash insert, under the shared ``ok``
+    that every rank computes from the same gathered vector.
+
+On a card each segment is a CUDA graph of its own and the collectives run
+between the replays (``graphs.RankProgram``). Every rank's host state is
+the global one, replicated: the counts per shard, the totals, depth, found
+names, ``level_log`` and ``dispatch_log``; every host decision (growths,
+the delta set's flush list, the codec overflow, the block's exit) comes
+from reduced or gathered values, so all ranks take the same one and call
+the same collectives in the same order. Host reads of shards gather every
+rank's (``Group.host_read``); ``save_checkpoint`` gathers on every rank and
+writes on rank 0 alone, as does the metrics recorder; ``metrics()`` calls
+no collective. The result is the one-process mesh's, shard for shard.
+
 Differences from the reference, by design: the counters are int64, so a
 block needs no ``kmax`` cut of its level budget; the delta set reports an
 overflow and the host flushes each shard's tier between blocks (the
 single-chip port's protocol), where the reference's insert flushes inside
-the level; ``dedup="auto"`` is the sorted set on every device.
+the level; ``dedup="auto"`` is the sorted set on every device; a mesh over
+several devices in one process is refused (PyTorch's idiom is one rank a
+card, and a one-card machine can test only that).
 """
 
 from __future__ import annotations
@@ -64,14 +97,22 @@ import torch
 from .. import graphs, native, obs
 from ..backend import resolve_device
 from ..checker.base import Checker
-from ..checkpoint import AutoCheckpointer, load_checkpoint, validate_model, validate_symmetry
+from ..checkpoint import (
+    AutoCheckpointer,
+    checkpoint_arrays,
+    load_checkpoint,
+    save_checkpoint,
+    validate_model,
+    validate_symmetry,
+)
 from ..core import Expectation, Model
 from ..graphs import OVF, S
 from ..ops import deltaset, hashset
 from ..ops.compact import compact
-from ..ops.words import DTYPE, MASK32, from_u32, to_u32
+from ..ops.words import DTYPE, MASK32, fold_key, from_u32
 from ..sym import SymmetryUnsupported, resolve_symmetry
 from ..xla import ENGINE_COUNTERS, PACKED_ATTRS, XlaChecker
+from . import distributed
 
 #: The owner mix's multiplier: decorrelated from the fingerprint lanes and
 #: from the hash set's home slot (``ops/hashset.GOLDEN``).
@@ -94,24 +135,54 @@ def owner_bits(fp_hi, fp_lo, n_shards: int):
 class Mesh:
     """A one-axis mesh (axis ``"shards"``) of ``devices.size`` shards;
     ``devices`` is a 1-D numpy array of ``torch.device``, as the reference's
-    ``Mesh.devices`` is an array of JAX devices."""
+    ``Mesh.devices`` is an array of JAX devices. On a mesh over several
+    processes ``ranks[i]`` is the rank that holds shard i (contiguous
+    blocks, in rank order) and ``rank`` the rank of this process; in one
+    process ``ranks`` is None."""
 
     axis_names = ("shards",)
 
-    def __init__(self, devices):
+    def __init__(self, devices, ranks=None, rank: int = 0):
         self.devices = np.empty(len(devices), dtype=object)
         for i, dev in enumerate(devices):
             self.devices[i] = torch.device(dev)
+        self.ranks = None if ranks is None else np.asarray(ranks, dtype=np.int64)
+        self.rank = rank
+
+    @property
+    def local(self) -> slice:
+        """The global shards this process holds."""
+        if self.ranks is None:
+            return slice(0, self.devices.size)
+        mine = np.flatnonzero(self.ranks == self.rank)
+        return slice(int(mine[0]), int(mine[-1]) + 1)
 
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]}, axis_names={self.axis_names})"
+        ranks = "" if self.ranks is None else f", ranks={self.ranks.tolist()}"
+        return f"Mesh({[str(d) for d in self.devices]}, axis_names={self.axis_names}{ranks})"
 
 
 def default_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
     """``n_devices`` shards on one device (``backend.resolve_device``: the
     card unless ``device="cpu"``). ``None`` means the count of devices of
     that kind, as the reference's default mesh is every device: on one
-    card, one shard, which ``spawn_xla`` runs on the single-chip engine."""
+    card, one shard, which ``spawn_xla`` runs on the single-chip engine.
+
+    Under a process group (``distributed.initialize``), ``n_devices``
+    global shards (a power of two that the world size divides; ``None`` is
+    one shard a rank), each rank holding ``n_devices / world`` contiguous
+    ones on its own device; ``device``, if given, must be this rank's."""
+    group = distributed.group()
+    if group is not None:
+        if device is not None and torch.device(device) != group.device:
+            raise ValueError(f"device={device!r} is not this rank's device {group.device}")
+        n = group.world if n_devices is None else n_devices
+        if n < group.world or n % group.world or n & (n - 1):
+            raise ValueError(f"a rank mesh needs a power of two of shards that the world size "
+                             f"{group.world} divides, got {n}")
+        per = n // group.world
+        ranks = np.repeat(np.arange(group.world), per)
+        return Mesh([group.devices[r] for r in ranks], ranks=ranks, rank=group.rank)
     dev = resolve_device(device)
     if n_devices is None:
         n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
@@ -121,12 +192,21 @@ def default_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
 
 
 def mesh_device(mesh) -> torch.device:
-    """The one device every shard of ``mesh`` is on."""
+    """The device of this process's shards of ``mesh``: on a mesh over
+    several processes this rank's, in one process the one device every
+    shard is on."""
+    if getattr(mesh, "ranks", None) is not None:
+        group = distributed.group()
+        if group is None or group.world != int(mesh.ranks.max()) + 1 or group.rank != mesh.rank:
+            raise ValueError("a rank mesh needs the process group it was made under "
+                             "(parallel.distributed.initialize, then default_mesh)")
+        return group.device
     devs = {str(torch.device(d)) for d in mesh.devices}
     if len(devs) != 1:
         raise NotImplementedError(
-            f"a mesh over several devices ({sorted(devs)}) is not ported yet "
-            "(ROADMAP A10b-2); the port runs every shard on one device")
+            f"a mesh over several devices in one process ({sorted(devs)}) is not supported: "
+            "run one rank a card over torch.distributed (parallel.distributed.initialize, "
+            "then default_mesh(n)), each rank holding its shards on its own device")
     return resolve_device(mesh.devices[0])
 
 
@@ -136,8 +216,12 @@ class ShardStep(NamedTuple):
     it and as it was (the carry's views), the hash inserts' undos, the
     discoveries, the level's generated and unique counts over the shards,
     the overflow flags (table, frontier, codec, route: the block scalars'
-    ``OVF`` slots, the candidate one holding the route's) and the host-verified
-    candidates ``(words, fingerprints, counts)`` a shard."""
+    ``OVF`` slots, the candidate one holding the route's), the host-verified
+    candidates ``(words, fingerprints, counts)`` a shard, the next frontier's
+    total over every shard, and, on a rank, the host-verified candidates
+    every rank collects this level (``hv_lc``, else None). On a rank the
+    counts, flags and discoveries are the reduced ones, the buffers this
+    rank's."""
 
     frontier: torch.Tensor
     ebits: torch.Tensor
@@ -151,12 +235,44 @@ class ShardStep(NamedTuple):
     unique: torch.Tensor
     flags: torch.Tensor
     hv: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    f_total: torch.Tensor
+    hv_lc: Optional[torch.Tensor]
+
+
+class RouteStep(NamedTuple):
+    """Segment (a) of a level: each property's election over the local
+    shards (``(has, fp_hi, fp_lo)``, each ``[P]``), the host-verified
+    candidates, the codec and route overflow flags and the local generated
+    count. The route buffer went to the caller's ``put``."""
+
+    elect: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    hv: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    codec_ovf: torch.Tensor
+    route_ovf: torch.Tensor
+    states: torch.Tensor
+
+
+class OwnerStep(NamedTuple):
+    """Segment (b) of a level: each local owner's visited set as the insert
+    left it and as it was, the hash inserts' undos, its next frontier, its
+    eventually-bits and count, the new keys over the local shards and the
+    table overflow."""
+
+    tables: List[Any]
+    before: List[Any]
+    undos: List[Any]
+    fronts: List[torch.Tensor]
+    ebits: List[torch.Tensor]
+    counts: List[torch.Tensor]
+    unique: torch.Tensor
+    table_ovf: torch.Tensor
 
 
 class ShardedXlaChecker(Checker):
-    """Level-synchronous BFS over D fingerprint-owned shards on one device
-    (module docstring). Spawn through ``model.checker().spawn_xla(mesh=
-    default_mesh(D))``; a one-shard mesh runs the single-chip engine."""
+    """Level-synchronous BFS over D fingerprint-owned shards on one device,
+    or over the ranks of a process group (module docstring). Spawn through
+    ``model.checker().spawn_xla(mesh=default_mesh(D))``; a one-shard mesh
+    runs the single-chip engine."""
 
     # Shared with the single-chip engine: the codec and witness paths, the
     # property-gate of a level, the structures' insert, the host-verified
@@ -171,10 +287,9 @@ class ShardedXlaChecker(Checker):
     _hv_compact = XlaChecker._hv_compact
     _raise_codec_overflow = XlaChecker._raise_codec_overflow
     _pin_found_names = XlaChecker._pin_found_names
-    save_checkpoint = XlaChecker.save_checkpoint
-    _maybe_checkpoint = XlaChecker._maybe_checkpoint
     _maybe_record = XlaChecker._maybe_record
     _settle = XlaChecker._settle
+    save_checkpoint = XlaChecker.save_checkpoint
     LOAD = XlaChecker.LOAD
 
     def __init__(
@@ -215,6 +330,11 @@ class ShardedXlaChecker(Checker):
         self._D = D = mesh.devices.size
         if D & (D - 1):
             raise ValueError(f"mesh size must be a power of two, got {D}")
+        #: The process group of a rank mesh, else None; this rank's shards
+        #: are ``local`` (``Dl`` of them from global shard ``r0``).
+        self._group = distributed.group() if mesh.ranks is not None else None
+        self._local = mesh.local
+        self._r0, self._Dl = self._local.start, self._local.stop - self._local.start
         # The canonical form also decides a state's owner, so one class
         # never splits across shards.
         sym = resolve_symmetry(symmetry, builder._symmetry is not None, model, engine="xla-mesh",
@@ -291,7 +411,10 @@ class ShardedXlaChecker(Checker):
         self._target_reached = False
         self._tracer = obs.resolve_tracer(trace)
         self._heartbeat = obs.resolve_heartbeat(heartbeat)
-        self._recorder = obs.resolve_recorder(metrics_to, metrics_every, metrics_keep)
+        # Every rank reaches each quiescent point with the same gauges, so
+        # rank 0's rows are the series, as its file is the checkpoint.
+        self._recorder = (obs.resolve_recorder(metrics_to, metrics_every, metrics_keep)
+                          if self._rank == 0 else None)
         self._counters = obs.Counters(ENGINE_COUNTERS + ("route_grows",))
         #: One ``(D * Fl, committed_levels)`` per dispatch.
         self.dispatch_log: List[Tuple[int, int]] = []
@@ -314,7 +437,7 @@ class ShardedXlaChecker(Checker):
             frontier, fhi, flo, ebits, counts = self._route_frontier_host(
                 init, np.full(n_init, self._ebits0, dtype=np.uint32))
             self._store_frontier(frontier, ebits, counts)
-            self._tables = [self._ds.make(self._Cl, dev) for _ in range(D)]
+            self._tables = [self._ds.make(self._Cl, dev) for _ in range(self._Dl)]
             # Init fingerprints go in with a zero parent, a shard's batch each.
             zeros = np.zeros_like(fhi)
             self._unique_count = self._bulk_insert(fhi, flo, zeros, zeros, counts)
@@ -325,6 +448,38 @@ class ShardedXlaChecker(Checker):
         for hook in (self._autockpt, self._recorder):
             if hook is not None:
                 hook.arm(self._depth)
+
+    # --- the ranks ---------------------------------------------------------------
+
+    @property
+    def _rank(self) -> int:
+        return 0 if self._group is None else self._group.rank
+
+    def _gather(self, t: torch.Tensor) -> np.ndarray:
+        """The global host array of which ``t`` holds this rank's shards
+        along the leading axis (in one process, ``t`` itself)."""
+        if self._group is None:
+            return t.detach().cpu().numpy()
+        return self._group.host_read(t)
+
+    def _any(self, flag: bool) -> bool:
+        return bool(flag) if self._group is None else self._group.any(flag)
+
+    def _gather_rows(self, lanes: List[np.ndarray]) -> List[np.ndarray]:
+        """Equal-length host lanes of this rank's rows, concatenated with
+        every rank's in rank order (in one process, the lanes)."""
+        if self._group is None:
+            return lanes
+        both = self._group.gather_ragged(np.stack(lanes, 1).astype(np.int64))
+        return [both[:, j].astype(lanes[j].dtype) for j in range(len(lanes))]
+
+    @property
+    def _reduce_width(self) -> int:
+        """The words of a level's packed reduction on a rank: the four
+        overflow flags, the generated, unique and next-frontier counts, the
+        host-verified candidates of each such property, and each property's
+        election flag and key."""
+        return 7 + len(self._hv_idx) + 2 * self._P
 
     # --- capacities ----------------------------------------------------------
 
@@ -379,26 +534,32 @@ class ShardedXlaChecker(Checker):
         return (*out, counts)
 
     def _store_frontier(self, frontier, ebits, counts) -> None:
-        self._frontier = from_u32(frontier, self._device)
-        self._frontier_ebits = from_u32(ebits, self._device)
+        """Global host ``[D, Fl, ...]`` frontier blocks: this rank's shards
+        onto its device, the counts of every shard kept on the host."""
+        mine = self._local
+        self._frontier = from_u32(frontier[mine], self._device)
+        self._frontier_ebits = from_u32(ebits[mine], self._device)
         self._counts = np.asarray(counts, dtype=np.int64)
 
     def _bulk_insert(self, kh, kl, vh, vl, counts) -> int:
         """Per-shard blocks ``[D, B]`` of (fingerprint, value) words into
-        the shards' visited sets, the first ``counts[d]`` of each active;
-        grows (or, for the delta set, flushes) and retries on an overflow.
-        Returns the count of new entries."""
+        the shards' visited sets (this rank's shards), the first
+        ``counts[d]`` of each active; grows (or, for the delta set,
+        flushes) and retries on an overflow of any shard. Returns the count
+        of new entries over every shard."""
         dev = self._device
         B = kh.shape[1]
-        lanes = [from_u32(a, dev) for a in (kh, kl, vh, vl)]
+        lanes = [from_u32(a[self._local], dev) for a in (kh, kl, vh, vl)]
         while True:
             out, unique, overflow = [], 0, False
             for d, table in enumerate(self._tables):
-                active = torch.arange(B, device=dev) < int(counts[d])
+                active = torch.arange(B, device=dev) < int(counts[self._r0 + d])
                 nt, is_new, ovf, _ = self._insert(table, *(x[d] for x in lanes), active)
                 out.append(nt)
                 unique += int(is_new.sum())
                 overflow |= bool(ovf)
+            if self._group is not None:
+                unique, overflow = self._group.reduce([unique, int(overflow)], "sum")
             if not overflow:
                 self._tables = out
                 return unique
@@ -428,11 +589,11 @@ class ShardedXlaChecker(Checker):
         if self._dedup == "hash":
             # The reference's padded per-shard batches, so that the slot
             # layout is its own.
-            self._tables = [hashset.make(self._Cl, dev) for _ in range(D)]
+            self._tables = [hashset.make(self._Cl, dev) for _ in range(self._Dl)]
             self._bulk_insert(*blocks, counts)
         else:
             self._tables = [self._ds.from_entries(*(b[d, :counts[d]] for b in blocks), self._Cl, dev)
-                            for d in range(D)]
+                            for d in range(D)[self._local]]
         frontier, _, _, ebits, fcounts = self._route_frontier_host(
             np.asarray(ck["frontier"], dtype=np.uint32).reshape(-1, self._W),
             np.asarray(ck["frontier_ebits"], dtype=np.uint32))
@@ -452,20 +613,50 @@ class ShardedXlaChecker(Checker):
         """Every shard's occupied ``(key_hi, key_lo, val_hi, val_lo)`` rows
         as host ``uint32`` arrays, in the reference's order of its global
         planes: shard by shard, each in its structure's plane order (and,
-        for the delta set, every shard's main tier before the delta tiers)."""
+        for the delta set, every shard's main tier before the delta tiers);
+        on a rank, every rank's shards, gathered."""
         parts = [self._ds.occupied_rows(t) for t in self._tables]
         if self._dedup == "delta":
             mains = [[a[:int(t.n_main)] for a in p] for p, t in zip(parts, self._tables)]
             deltas = [[a[int(t.n_main):] for a in p] for p, t in zip(parts, self._tables)]
-            parts = mains + deltas
-        return [np.concatenate([p[j] for p in parts]) for j in range(4)]
+            return [np.concatenate(pair) for pair in zip(*(
+                self._gather_rows([np.concatenate([p[j] for p in tier]) for j in range(4)])
+                for tier in (mains, deltas)))]
+        return self._gather_rows([np.concatenate([p[j] for p in parts]) for j in range(4)])
+
+    def _key_planes(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Every shard's ``key_hi`` and ``key_lo`` planes as host ``uint32``
+        ``[D, slots]`` arrays (the audit's read; gathered on a rank)."""
+        return tuple(self._gather(torch.stack([getattr(t, name) for t in self._tables]))
+                     .astype(np.uint32) for name in ("key_hi", "key_lo"))
 
     def _live_frontier(self) -> Tuple[np.ndarray, np.ndarray]:
         """The live frontier rows ``[n, W]`` and eventually-bits ``[n]`` as
-        host ``uint32``, shard by shard (the reference's ``_live_frontier``)."""
-        rows, ebits = to_u32(self._frontier), to_u32(self._frontier_ebits)
+        host ``uint32``, shard by shard (the reference's ``_live_frontier``;
+        gathered from every rank)."""
+        rows = self._gather(self._frontier).astype(np.uint32)
+        ebits = self._gather(self._frontier_ebits).astype(np.uint32)
         return (np.concatenate([rows[d, :n] for d, n in enumerate(self._counts)]),
                 np.concatenate([ebits[d, :n] for d, n in enumerate(self._counts)]))
+
+    def _write_checkpoint(self, path: str, keep: int) -> None:
+        """The global search state's file. On a rank mesh every rank gathers
+        the payload (a collective) and rank 0 alone writes it, as the
+        reference's process 0 does: its file is the global file. Every rank
+        counts the write (``save_checkpoint``), so ``checkpoints_written``
+        and ``last_checkpoint_level`` agree on every rank; the path is rank
+        0's."""
+        if self._rank == 0:
+            save_checkpoint(self, path, keep=keep)
+        else:
+            checkpoint_arrays(self)
+
+    def _maybe_checkpoint(self) -> None:
+        """The auto-checkpoint hook (``XlaChecker._maybe_checkpoint``); on a
+        rank mesh a write is due when it is due on any rank (a cadence in
+        seconds reads each rank's own clock)."""
+        if self._autockpt is not None:
+            self._autockpt.maybe(self, agree=None if self._group is None else self._group.any)
 
     # --- the level ---------------------------------------------------------------
 
@@ -476,22 +667,29 @@ class ShardedXlaChecker(Checker):
         n_counts = len(kind._fields) - kind.PLANES
         return kind(*(p[d] for p in c.table), *(c.table_n[d, j] for j in range(n_counts)))
 
-    def _elect(self, viol, fhi, flo, i: int, disc_found, disc_fp) -> None:
-        """The discovery election for property ``i`` over ``[D, Fl]``
+    @staticmethod
+    def _elect(viol, fhi, flo):
+        """The discovery election of one property over ``[shards, Fl]``
         matches (the reference's ``pick_discovery``): each shard's first
         match in frontier order, the largest ``fp_hi`` over the shards,
-        then the largest ``fp_lo`` among those holding it. In place."""
+        then the largest ``fp_lo`` among those holding it. Returns
+        ``(has, fp_hi, fp_lo)``, the winner zero where nothing matched."""
         has_local = viol.any(1)
         first = torch.argmax(viol.to(torch.uint8), dim=1, keepdim=True)
         cand_hi = torch.where(has_local, fhi.gather(1, first)[:, 0], 0)
         cand_lo = torch.where(has_local, flo.gather(1, first)[:, 0], 0)
         g_hi = cand_hi.max()
         g_lo = torch.where(cand_hi == g_hi, cand_lo, 0).max()
-        has = has_local.any()
-        take = has & ~disc_found[i]
-        disc_fp[i, 0] = torch.where(take, g_hi, disc_fp[i, 0])
-        disc_fp[i, 1] = torch.where(take, g_lo, disc_fp[i, 1])
-        disc_found[i] = disc_found[i] | has
+        return has_local.any(), g_hi, g_lo
+
+    @staticmethod
+    def _pin_elected(has, fp_hi, fp_lo, disc_found, disc_fp) -> None:
+        """The elections' winners ``[P]`` into the discoveries, in place: a
+        property found already keeps its fingerprint."""
+        take = has & ~disc_found
+        disc_fp[:, 0] = torch.where(take, fp_hi, disc_fp[:, 0])
+        disc_fp[:, 1] = torch.where(take, fp_lo, disc_fp[:, 1])
+        disc_found.copy_(disc_found | has)
 
     def _shard_step(self, c: graphs.ShardCarry, gate) -> ShardStep:
         """Every shard's superstep from the carry ``c`` (module docstring,
@@ -499,17 +697,39 @@ class ShardedXlaChecker(Checker):
         committed yet: the hash sets' inserts are in the carry's planes and
         are undone by :meth:`_shard_commit` unless committed. Nothing here
         waits on the host, so the level can be captured into a CUDA graph."""
+        D, Fl, W, K = self._D, self._Fl, self._W, self._K
+        LANES = W + len(ROUTE_LANES)
+        send = torch.empty((D, D, LANES, K), dtype=DTYPE, device=self._device)
+        route = self._route_step(c, gate, send.__setitem__)
+        recv = send.transpose(0, 1)  # the all_to_all: [D_dst, D_src, LANES, K]
+        own = self._owner_step(c, gate, recv.__getitem__)
+        disc_found, disc_fp = c.disc_found.clone(), c.disc_fp.clone()
+        self._pin_elected(*route.elect, disc_found, disc_fp)
+        counts = torch.stack(own.counts)
+        flags = torch.stack([own.table_ovf, (counts > Fl).any(), route.codec_ovf,
+                             route.route_ovf]).to(DTYPE)
+        return ShardStep(torch.stack(own.fronts), torch.stack(own.ebits), counts, own.tables,
+                         own.before, own.undos, disc_found, disc_fp, route.states, own.unique,
+                         flags, route.hv, counts.sum(), None)
+
+    def _route_step(self, c: graphs.ShardCarry, gate, put) -> RouteStep:
+        """Segment (a) of a level over the carry's shards (module docstring,
+        steps 1-3): properties, elections, the action grid, the terminal
+        pass and each shard's route buffer, ``put(src, [D_dst, LANES, K])``
+        for local source shard ``src``."""
         D, Fl, W, A, K = self._D, self._Fl, self._W, self._A, self._K
+        Dl = c.counts.shape[0]
         dev = self._device
         model = self._model
         LANES = W + len(ROUTE_LANES)
-        disc_found, disc_fp = c.disc_found.clone(), c.disc_fp.clone()
-        rows = c.frontier.view(D * Fl, W)
+        zero = torch.zeros((), dtype=DTYPE, device=dev)
+        elect = [(torch.zeros((), dtype=torch.bool, device=dev), zero, zero)] * self._P
+        rows = c.frontier.view(Dl * Fl, W)
         f_valid = torch.arange(Fl, device=dev)[None, :] < c.counts[:, None]  # [D, Fl]
         fv = f_valid.view(-1)
         fhi, flo = self._fingerprint_rows(rows)
         ebits = c.ebits.view(-1)
-        shard_of = lambda t: t.view(D, Fl, *t.shape[1:])  # noqa: E731
+        shard_of = lambda t: t.view(Dl, Fl, *t.shape[1:])  # noqa: E731
 
         # Properties over every shard's frontier.
         props = model.packed_properties(rows)  # [D * Fl, P]
@@ -523,12 +743,12 @@ class ShardedXlaChecker(Checker):
             if i in self._hv_idx:
                 per = [self._hv_compact(hit[d * Fl:(d + 1) * Fl], c.frontier[d],
                                         fhi[d * Fl:(d + 1) * Fl], flo[d * Fl:(d + 1) * Fl])
-                       for d in range(D)]
+                       for d in range(Dl)]
                 hv_w.append(torch.stack([w for w, _, _ in per]))
                 hv_f.append(torch.stack([f for _, f, _ in per]))
                 hv_n.append(torch.stack([n for _, _, n in per]))
                 continue
-            self._elect(shard_of(hit), shard_of(fhi), shard_of(flo), i, disc_found, disc_fp)
+            elect[i] = self._elect(shard_of(hit), shard_of(fhi), shard_of(flo))
         hv = (torch.stack(hv_w), torch.stack(hv_f), torch.stack(hv_n)) if hv_n else None
 
         # Every shard's action grid, and the terminal pass.
@@ -540,16 +760,15 @@ class ShardedXlaChecker(Checker):
         if self._ebit_of_prop:
             terminal = fv & ~valid.any(1)
             for i, bit in self._ebit_of_prop.items():
-                self._elect(shard_of(terminal & ((ebits >> bit) & 1 == 1)), shard_of(fhi),
-                            shard_of(flo), i, disc_found, disc_fp)
+                elect[i] = self._elect(shard_of(terminal & ((ebits >> bit) & 1 == 1)),
+                                       shard_of(fhi), shard_of(flo))
 
         # Candidates, compacted in state-major order, routed to their owners.
         C = Fl * A
         shard_ids = torch.arange(D, device=dev)
         slot = torch.arange(K, device=dev)
-        send = torch.empty((D, D, LANES, K), dtype=DTYPE, device=dev)
         route_ovf = torch.zeros((), dtype=torch.bool, device=dev)
-        for src in range(D):
+        for src in range(Dl):
             part = slice(src * Fl, (src + 1) * Fl)
             lanes = [nxt[part, :, w] for w in range(W)] + [
                 lane[part, None].expand(Fl, A) for lane in (fhi, flo, ebits)]
@@ -565,15 +784,26 @@ class ShardedXlaChecker(Checker):
             take = slot[None, :] < cnt[:, None]  # [D_dst, K]
             idx = torch.where(take, (cnt.cumsum(0) - cnt)[:, None] + slot[None, :], 0)
             sel = routed.index_select(1, idx.view(-1)).view(LANES, D, K).transpose(0, 1)
-            send[src] = torch.where(take[:, None, :], sel, 0)
-        recv = send.transpose(0, 1)  # the all_to_all: [D_dst, D_src, LANES, K]
+            put(src, torch.where(take[:, None, :], sel, 0))
+        if elect:
+            has, hi, lo = (torch.stack(x) for x in zip(*elect))
+        else:
+            has, hi, lo = torch.zeros(0, dtype=torch.bool, device=dev), zero[None][:0], zero[None][:0]
+        return RouteStep((has, hi, lo), hv, codec_ovf, route_ovf, states)
 
-        # Each owner's insert into its own visited set, and its next frontier.
+    def _owner_step(self, c: graphs.ShardCarry, gate, batch_of) -> OwnerStep:
+        """Segment (b) of a level (module docstring, step 5): each local
+        owner ``d``'s insert of its batch ``batch_of(d)`` (``[D_src, LANES,
+        K]``, source shards in global order) into its own visited set, and
+        its next frontier."""
+        Fl, W, K = self._Fl, self._W, self._K
+        D = self._D
+        dev = self._device
         tables, before, undos, fronts, fe, fcount = [], [], [], [], [], []
         unique = torch.zeros((), dtype=DTYPE, device=dev)
         table_ovf = torch.zeros((), dtype=torch.bool, device=dev)
-        for d in range(D):
-            rl = recv[d]  # [D_src, LANES, K]
+        for d in range(c.counts.shape[0]):
+            rl = batch_of(d)  # [D_src, LANES, K]
             hi, lo, par_hi, par_lo = (rl[:, W + j].reshape(-1) for j in range(4))
             active = ((hi != 0) | (lo != 0)) & gate
             table = self._carried_table(c, d)
@@ -590,10 +820,61 @@ class ShardedXlaChecker(Checker):
             fronts.append(out[:W].T)
             fe.append(out[W])
             fcount.append(n_new)
-        counts = torch.stack(fcount)
-        flags = torch.stack([table_ovf, (counts > Fl).any(), codec_ovf, route_ovf]).to(DTYPE)
-        return ShardStep(torch.stack(fronts), torch.stack(fe), counts, tables, before, undos,
-                         disc_found, disc_fp, states, unique, flags, hv)
+        return OwnerStep(tables, before, undos, fronts, fe, fcount, unique, table_ovf)
+
+    def _rank_segments(self, c: graphs.ShardCarry):
+        """A rank's level as ``(segments, collectives)`` for
+        ``graphs.RankProgram`` (module docstring, (a)-(c)): the route step
+        into the carry's send buffer, the exchange, the owners' step and
+        the packed local vector, its all-gather, then the reduction and the
+        commit. The segments share a dict; nothing in them waits on the
+        host."""
+        group = self._group
+        D, Dl, Fl, W, K, P = self._D, self._Dl, self._Fl, self._W, self._K, self._P
+        n_hv = len(self._hv_idx)
+        LANES = W + len(ROUTE_LANES)
+        send, recv = c.route(K, LANES)
+        sign = fold_key(torch.zeros((), dtype=DTYPE), torch.zeros((), dtype=DTYPE)).item()
+
+        def put(src, v):  # [D_dst, LANES, K] -> send[rank, j, src]
+            send[:, :, src].copy_(v.view(group.world, Dl, LANES, K))
+
+        def route(st):
+            st["live"] = live = self._live(c.s, c.disc_found, c.host_found, c.hv_tot)
+            st["route"] = self._route_step(c, live, put)
+
+        def owners(st):
+            st["own"] = own = self._owner_step(
+                c, st["live"], lambda d: recv[:, d].reshape(D, LANES, K))
+            r = st["route"]
+            counts = torch.stack(own.counts)
+            flags = torch.stack([own.table_ovf, (counts > Fl).any(), r.codec_ovf, r.route_ovf])
+            has, hi, lo = r.elect
+            key = torch.where(has, fold_key(hi, lo), sign)
+            parts = [flags.to(DTYPE), torch.stack([r.states, own.unique, counts.sum()])]
+            if n_hv:
+                confirmed = torch.stack([c.host_found[i] for i in self._hv_idx])
+                parts.append((r.hv[2] * (~confirmed).to(DTYPE)[:, None]).sum(1))
+            c.red.copy_(torch.cat(parts + [has.to(DTYPE), key]))
+
+        def commit(st):
+            own, r, every = st["own"], st["route"], c.red_all
+            flags = every[:, :4].amax(0)
+            states, unique, f_total = every[:, 4:7].sum(0)
+            hv_lc = every[:, 7:7 + n_hv].sum(0) if n_hv else None
+            has = every[:, 7 + n_hv:7 + n_hv + P].amax(0) > 0
+            pair = every[:, 7 + n_hv + P:].amax(0) ^ sign
+            disc_found, disc_fp = c.disc_found.clone(), c.disc_fp.clone()
+            self._pin_elected(has, (pair >> 32) & MASK32, pair & MASK32, disc_found, disc_fp)
+            self._shard_commit(c, st["live"], ShardStep(
+                torch.stack(own.fronts), torch.stack(own.ebits), torch.stack(own.counts),
+                own.tables, own.before, own.undos, disc_found, disc_fp, states, unique, flags,
+                r.hv, f_total, hv_lc))
+
+        def gather():
+            c.red_all.copy_(group.all_gather(c.red))
+
+        return (route, owners, commit), (lambda: group.exchange(send, recv), gather)
 
     def _shard_commit(self, c: graphs.ShardCarry, live, step: ShardStep) -> None:
         """Commit ``step`` into the carry ``c`` on every shard where ``live``
@@ -623,6 +904,7 @@ class ShardedXlaChecker(Checker):
             keep(new_n, c.table_n[:, :n_counts])
         keep(step.disc_found, c.disc_found)
         keep(step.disc_fp, c.disc_fp)
+        hv_total = None
         if self._hv_idx:
             lw, lf, lc = step.hv
             # A property the host confirmed collects nothing; this level's
@@ -638,17 +920,22 @@ class ShardedXlaChecker(Checker):
                 got = torch.take_along_dim(new, idx.expand(-1, -1, -1, new.shape[3]), dim=2)
                 acc.copy_(torch.where(commit & take[..., None], got, acc))
             c.hv_c.copy_(torch.where(commit, c.hv_c + lc, c.hv_c))
+            hv_total = c.hv_c.sum(1)
+            if step.hv_lc is not None:  # every rank's, as the gate reads them
+                c.hv_tot.copy_(torch.where(commit, c.hv_tot + step.hv_lc, c.hv_tot))
+                hv_total = c.hv_tot
         hit = commit & (c.slots == s[S["committed"]])
         row = torch.stack([s[S["f_count"]], step.states, step.unique])[:, None]
         c.lvl.copy_(torch.where(hit, row, c.lvl))
         cm = commit.to(DTYPE)
         new = s.clone()
         new[S["committed"]] += cm
-        new[S["f_count"]] = torch.where(commit, step.counts.sum(), s[S["f_count"]])
+        new[S["f_count"]] = torch.where(commit, step.f_total, s[S["f_count"]])
         new[S["tot_states"]] += cm * step.states
         new[S["tot_unique"]] += cm * step.unique
         new[OVF] = torch.where(live, step.flags, s[OVF])
-        new[S["live"]] = self._live(new, c.disc_found, c.host_found, c.hv_c.sum(1))
+        new[S["live"]] = self._live(new, c.disc_found, c.host_found,
+                                    c.hv_c.sum(1) if hv_total is None else hv_total)
         s.copy_(new)
 
     def _shard_level(self, c: graphs.ShardCarry) -> None:
@@ -662,18 +949,29 @@ class ShardedXlaChecker(Checker):
     # --- programs ---------------------------------------------------------------
 
     def _key(self) -> Tuple:
+        world = 1 if self._group is None else self._group.world
         return graphs.shard_key(self._D, self._Fl, self._Cl, self._K, self._levels_per_dispatch,
-                                self._hv_cap, self._dedup, self._max_probes, self._sym_tag)
+                                self._hv_cap, self._dedup, self._max_probes, self._sym_tag,
+                                ranks=(world, self._r0))
 
-    def _program(self) -> graphs.Program:
-        """The program of the current shapes: captured on first use on a card."""
+    def _carry(self) -> graphs.ShardCarry:
+        return self._programs.shard_carry(self._key(), self._W, self._P, len(self._hv_idx),
+                                          self._reduce_width if self._group is not None else 0)
+
+    def _program(self):
+        """The program of the current shapes (a ``graphs.RankProgram`` on a
+        rank): captured on first use on a card."""
         key = self._key()
         prog = self._programs.shard_programs.get(key)
         if prog is None or (self._use_graphs and prog.graph is None):
-            carry = self._programs.shard_carry(key, self._W, self._P, len(self._hv_idx))
+            carry = self._carry()
             t0 = time.perf_counter()
-            prog = self._programs.make_shard(key, carry, functools.partial(self._shard_level, carry),
-                                             graph=self._use_graphs)
+            if self._group is not None:
+                prog = self._programs.make_rank(key, carry, *self._rank_segments(carry),
+                                                graph=self._use_graphs)
+            else:
+                prog = self._programs.make_shard(
+                    key, carry, functools.partial(self._shard_level, carry), graph=self._use_graphs)
             if self._use_graphs:
                 self._counters.inc("graph_captures")
                 self._capture_s += time.perf_counter() - t0
@@ -698,7 +996,7 @@ class ShardedXlaChecker(Checker):
         returns the block scalars the host wrote."""
         c.frontier.copy_(self._frontier)
         c.ebits.copy_(self._frontier_ebits)
-        c.counts.copy_(torch.as_tensor(self._counts))
+        c.counts.copy_(torch.as_tensor(self._counts[self._local]))
         kind = type(self._tables[0])
         for d, t in enumerate(self._tables):
             for dst, src in zip(c.table, t[:kind.PLANES]):
@@ -709,7 +1007,7 @@ class ShardedXlaChecker(Checker):
         c.disc_fp.copy_(self._disc_fp)
         c.host_found.copy_(torch.tensor([n in self._found_names for n in self._prop_names],
                                         dtype=torch.bool))
-        for t in (c.lvl, c.hv_w, c.hv_f, c.hv_c):
+        for t in (c.lvl, c.hv_w, c.hv_f, c.hv_c, c.hv_tot):
             t.zero_()
         scalars = dict.fromkeys(graphs.SLOTS, 0)
         scalars.update(f_count=int(self._counts.sum()), budget=budget, remaining=remaining)
@@ -723,7 +1021,7 @@ class ShardedXlaChecker(Checker):
         self._frontier = c.frontier.clone()
         self._frontier_ebits = c.ebits.clone()
         self._counts = counts
-        self._tables = [self._carried_table(c, d) for d in range(self._D)]
+        self._tables = [self._carried_table(c, d) for d in range(self._Dl)]
         self._tables = [type(t)(*(x.clone() for x in t)) for t in self._tables]
         self._disc_found, self._disc_fp = c.disc_found.clone(), c.disc_fp.clone()
 
@@ -757,7 +1055,10 @@ class ShardedXlaChecker(Checker):
                     self._tables = [self._ds.grow(t, cap) for t in self._tables]
                 else:
                     rows = [deltaset.occupied_rows(t) for t in self._tables]
-                    while cap < 2 * max(len(r[0]) for r in rows):
+                    widest = max(len(r[0]) for r in rows)
+                    if self._group is not None:
+                        widest = self._group.reduce([widest], "max")[0]
+                    while cap < 2 * widest:
                         cap *= 2
                     self._tables = [deltaset.from_entries(*r, cap, dev) for r in rows]
             self._Cl = cap
@@ -766,20 +1067,29 @@ class ShardedXlaChecker(Checker):
         self._reshaped(old_key)
 
     def _flush(self, shards: List[int], proactive: bool) -> bool:
-        """Fold the delta tiers of ``shards`` into their main tiers
-        (``deltaset.maintain``, one ``delta_flush`` span); False, with the
-        tables as they were, when a main tier cannot hold its rows."""
+        """Fold the delta tiers of global ``shards`` into their main tiers
+        (``deltaset.maintain``, one ``delta_flush`` span; each rank its own
+        shards); False, with every table as it was, when a main tier of any
+        shard cannot hold its rows."""
+        mine = [d for d in shards if self._local.start <= d < self._local.stop]
         with self._tracer.span("delta_flush", proactive=proactive, shards=len(shards)):
-            flushed = []
-            for d in shards:
-                table, overflow = deltaset.maintain(self._tables[d])
+            flushed, failed = [], False
+            for d in mine:
+                table, overflow = deltaset.maintain(self._tables[d - self._r0])
                 if bool(overflow):
-                    return False
+                    failed = True
+                    break
                 flushed.append(table)
-        for d, table in zip(shards, flushed):
-            self._tables[d] = table
+            if self._any(failed):
+                return False
+        for d, table in zip(mine, flushed):
+            self._tables[d - self._r0] = table
         self._counters.inc("delta_flushes", len(shards))
         return True
+
+    def _delta_rows(self) -> np.ndarray:
+        """Each shard's delta-tier rows, every shard's (gathered on a rank)."""
+        return self._gather(torch.tensor([int(t.n_delta) for t in self._tables]))
 
     def _grow_table_if_loaded(self) -> bool:
         """The load rule after each block (the single-chip engine's), and
@@ -790,7 +1100,8 @@ class ShardedXlaChecker(Checker):
             self._grow_table(doublings)
         if self._dedup != "delta":
             return doublings > 0
-        full = [d for d, t in enumerate(self._tables) if int(t.n_delta) * 4 > t.delta_capacity * 3]
+        cap = self._tables[0].delta_capacity
+        full = [d for d, n in enumerate(self._delta_rows()) if n * 4 > cap * 3]
         if full and not self._flush(full, proactive=True):
             self._grow_table()
         return doublings > 0 or bool(full)
@@ -801,7 +1112,7 @@ class ShardedXlaChecker(Checker):
         an overflow with every tier empty, or a flush a main tier cannot
         hold, grows every shard's table."""
         if self._dedup == "delta":
-            pending = [d for d, t in enumerate(self._tables) if int(t.n_delta) > 0]
+            pending = [d for d, n in enumerate(self._delta_rows()) if n > 0]
             if pending and self._flush(pending, proactive=False):
                 return
         self._grow_table()
@@ -888,24 +1199,31 @@ class ShardedXlaChecker(Checker):
                 if flavor == "fused":
                     prog = self._program()
                     carry = prog.carry
-                    run = functools.partial(prog.run, functools.partial(self._shard_level, carry),
-                                            not graph)
+                    if self._group is not None:
+                        run = functools.partial(prog.run, eager=not graph)
+                    else:
+                        run = functools.partial(prog.run, functools.partial(self._shard_level, carry),
+                                                not graph)
                 else:
-                    carry = self._programs.shard_carry(self._key(), self._W, self._P,
-                                                       len(self._hv_idx))
-                    run = functools.partial(self._shard_level, carry)
+                    carry = self._carry()
+                    if self._group is not None:
+                        run = graphs.RankProgram(carry, *self._rank_segments(carry)).run
+                    else:
+                        run = functools.partial(self._shard_level, carry)
                 loaded = self._load(carry, budget_left, remaining)
                 self._counters.inc("dead_replays", graphs.replay_block(
                     lambda _row: run(), carry.s, loaded, budget_left))
-                vals = torch.cat([carry.s, carry.counts, carry.lvl.flatten(),
-                                  carry.hv_c.flatten()]).tolist()
+                n = len(graphs.SLOTS)
+                vals = torch.cat([carry.s, carry.lvl.flatten()]).tolist()
+                # The shards' counts and host-verified candidates: every
+                # rank's, on a rank.
+                per_shard = self._gather(torch.cat([carry.counts[:, None], carry.hv_c.T], 1))
                 s = dict(zip(graphs.SLOTS, vals))
                 committed = s["committed"]
                 span.set(committed=committed)
-            n = len(graphs.SLOTS)
-            counts = np.asarray(vals[n:n + self._D], dtype=np.int64)
-            lvl = np.asarray(vals[n + self._D:n + self._D + carry.lvl.numel()]).reshape(3, -1)
-            hv_counts = np.asarray(vals[n + self._D + carry.lvl.numel():]).reshape(-1, self._D)
+            counts = per_shard[:, 0].astype(np.int64)
+            lvl = np.asarray(vals[n:]).reshape(3, -1)
+            hv_counts = per_shard[:, 1:].T
             retry = False
             self.dispatch_log.append((run_rows, committed))
             self._keep(carry, counts)
@@ -968,8 +1286,11 @@ class ShardedXlaChecker(Checker):
                     continue
                 self.hv_stats["flagged"] += total
                 if words is None:
-                    words = to_u32(hv_w).reshape(len(self._hv_idx), -1, self._W)
-                    fps = to_u32(hv_f).reshape(len(self._hv_idx), -1, 2)
+                    # [n_hv, D, cap, ...]: every rank's shards, shard-major.
+                    words = self._gather(hv_w.transpose(0, 1)).swapaxes(0, 1).astype(np.uint32)
+                    words = words.reshape(len(self._hv_idx), -1, self._W)
+                    fps = self._gather(hv_f.transpose(0, 1)).swapaxes(0, 1).astype(np.uint32)
+                    fps = fps.reshape(len(self._hv_idx), -1, 2)
                 confirmed, collected = False, 0
                 for r in range(words.shape[1]):
                     fp_hi, fp_lo = int(fps[j, r, 0]), int(fps[j, r, 1])
@@ -1071,6 +1392,10 @@ class ShardedXlaChecker(Checker):
             "cand_retries": 0,
             "hv": dict(self.hv_stats),
             "graph_capture_s": self._capture_s,
+            # The rank mesh's collective backend and the host's side of its
+            # route exchange (None in one process).
+            "mesh_backend": None if self._group is None else self._group.backend,
+            "exchange": None if self._group is None else self._group.exchange_totals(),
             **self._counters.snapshot(),
         }
 

@@ -576,7 +576,7 @@ class XlaChecker(Checker):
         and records ``_last_checkpoint`` (the ``last_checkpoint_level``
         gauge) for both."""
         with self._tracer.span("checkpoint", path=path, depth=self._depth, keep=keep):
-            save_checkpoint(self, path, keep=keep)
+            self._write_checkpoint(path, keep)
         self._counters.inc("checkpoints_written")
         self._last_checkpoint = {
             "path": _normalize(path),
@@ -585,6 +585,10 @@ class XlaChecker(Checker):
             "unique": self._unique_count,
             "unix_ts": time.time(),
         }
+
+    def _write_checkpoint(self, path: str, keep: int) -> None:
+        """The file :meth:`save_checkpoint` writes."""
+        save_checkpoint(self, path, keep=keep)
 
     def _maybe_checkpoint(self) -> None:
         """The auto-checkpoint hook, called at every quiescent point of both

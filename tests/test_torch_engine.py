@@ -193,7 +193,8 @@ def test_port_runs_no_script_of_the_reference_package(path):
 def test_walks_cover_the_fleet_and_the_tools():
     """The two walks above glob the whole package: the fleet, the port's
     tools (the chaos harness, the trace bundle, the graph memory probe) and
-    the native host kit are among the files they check."""
+    the native host kit, the rank mesh's process group and its worker are
+    among the files they check."""
     walked = {str(p.relative_to(ROOT)) for p in (ROOT / "stateright_tpu_torch").rglob("*.py")}
     assert {"stateright_tpu_torch/service/fleet.py",
             "stateright_tpu_torch/tools/__init__.py",
@@ -201,6 +202,8 @@ def test_walks_cover_the_fleet_and_the_tools():
             "stateright_tpu_torch/tools/trace_bundle.py",
             "stateright_tpu_torch/tools/graph_memory.py",
             "stateright_tpu_torch/native/__init__.py",
+            "stateright_tpu_torch/parallel/distributed.py",
+            "stateright_tpu_torch/tools/mesh_worker.py",
             "stateright_tpu_torch/_build.py"} <= walked
 
 
