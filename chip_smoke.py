@@ -222,7 +222,21 @@ where there is no card or no ``stateright_tpu_torch`` beside it). It
    frontier, the Paxos 3c/3s grid and frontier and the ABD 3c/2s frontier,
    each timed beside the kernel (with the kernel table's bound and each
    call's peak memory);
-16. prints the ``{"kernels": [...]}`` line (launches summed over every
+16. runs the port's static analysis (``lint``): ``python -m
+   stateright_tpu_torch.analysis --json --no-cache``, the whole sweep, and
+   ``--admission 2pc:8``, the checker service's flight-check of the main
+   path's spec, each in a subprocess of its own started right after the
+   build and read after the main path (the lint uses the CPU and ``nvcc``,
+   never the card); both must be ``ok`` with no ``cuda:`` surface skipped.
+   It emits each kernel's registers, shared memory, spill bytes and
+   occupancy as ``ptxas`` reported them, the lint's seconds, and the
+   census's ``cuda`` plan for 2pc rm=8 at every frontier ceiling the main
+   path's cold run passed through held against the graphs that run
+   captured, each shape once (a table growth's remakes left out): every
+   captured ``(run_cap, rows, cand_cap)`` is the census's, or a rung the
+   planner gives once the run's candidate caps grew (a cap each grown
+   bucket passed through, ``census.grown_captures``);
+17. prints the ``{"kernels": [...]}`` line (launches summed over every
    main-path run: rm=8, Paxos 3c/3s, single-copy-register, the
    host-verified runs and the paths of items 9 to 15, the service's and
    the fleet's from their workers' ``--out`` files, each also by path),
@@ -259,6 +273,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
 from stateright_tpu_torch import PathRecorder, graphs, native, obs
+from stateright_tpu_torch.analysis.census import captures_of, grown_captures, plan_for
 from stateright_tpu_torch.audit import audit_table
 from stateright_tpu_torch.checker import explorer
 from stateright_tpu_torch.checker.explorer import make_app
@@ -291,7 +306,7 @@ from stateright_tpu_torch.ops.words import DTYPE, PAD_KEY, fold_key, from_u32, t
 from stateright_tpu_torch.parallel import default_mesh, owner_bits
 from stateright_tpu_torch.parallel import sharded as sharded_mod
 from stateright_tpu_torch.sym import canonicalize_host, compile_canon
-from stateright_tpu_torch.xla import XlaChecker
+from stateright_tpu_torch.xla import CAND_HINTS, DEFAULT_FRONTIER_CAPACITY, XlaChecker
 from stateright_tpu_torch.xla_mux import MuxChecker
 from stateright_tpu_torch.service import CheckerService, ServiceConfig
 from stateright_tpu_torch.service.registry import resolve as resolve_spec
@@ -5004,6 +5019,121 @@ def compaction_ops_phase(main_checker, shapes, abd_shapes) -> dict:
     return cases
 
 
+#: stpu-lint's runs (``python -m stateright_tpu_torch.analysis``): the
+#: whole sweep, and the service's flight-check of the main path's spec.
+LINT_RUNS = {
+    "full": ["--json", "--no-cache", "--census-out", ""],
+    "admission_2pc8": ["--admission", "2pc:8", "--json", "--no-cache"],
+}
+#: Seconds each lint run may take.
+LINT_TIMEOUT_S = 600
+#: The lint runs under way: name -> (process, stdout file, stderr file).
+LINT = {}
+
+
+def start_lint() -> None:
+    """Start every run of :data:`LINT_RUNS` in a subprocess of its own, its
+    output to files: the lint uses the CPU and ``nvcc``, never the card, so
+    it runs beside the phases that follow (:func:`lint_phase` reads it), on
+    one thread and at the lowest CPU priority (``nice -n 19``), so that it
+    takes only the cycles those phases leave idle."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    nice = shutil.which("nice")
+    low = [nice, "-n", "19"] if nice else []
+    for name, args in LINT_RUNS.items():
+        out = open(os.path.join(CKPT_DIR, f"lint_{name}.out"), "w+")
+        err = open(os.path.join(CKPT_DIR, f"lint_{name}.err"), "w+")
+        LINT[name] = (subprocess.Popen(
+            [*low, sys.executable, "-m", "stateright_tpu_torch.analysis", *args], cwd=root,
+            stdout=out, stderr=err, env={**os.environ, "OMP_NUM_THREADS": "1"}), out, err)
+
+
+def stop_lint() -> None:
+    """Kill every lint run still going, and close its files."""
+    for proc, out, err in LINT.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        out.close()
+        err.close()
+    LINT.clear()
+
+
+def census_rm8(model, line: dict) -> dict:
+    """The census's ``cuda`` plan of 2pc rm=8 (``analysis/census.py``) at
+    every frontier ceiling the main path's cold run ``line`` passed through
+    (the engine's default, doubled up to the final one), against the graphs
+    that run captured (:class:`ProgramUse`), each ``(run_cap, rows,
+    cand_cap)`` once: a table growth remakes every shape at the new
+    capacity. A shape outside the census must be a rung that the planner
+    gives at the candidate caps the run grew to (the model's
+    ``CAND_HINTS``; :func:`grown_captures`): the census is a lower bound,
+    and this prices the growth it leaves out."""
+    ceilings = [DEFAULT_FRONTIER_CAPACITY]
+    while ceilings[-1] < line["frontier_capacity"]:
+        ceilings.append(ceilings[-1] * 2)
+    plans = [plan_for("2pc:8", "cuda", frontier_capacity=f, _resolved=(model, {}))
+             for f in ceilings]
+    census = set().union(*(captures_of(p) for p in plans))
+    made = [e["key"] for e in PROGRAM_USE.entries if e["made_in"] == "rm8_cold"]
+    shapes = {k[:3] for k in made}
+    hints = dict(model.__dict__.get(CAND_HINTS, {}))
+    allowed = grown_captures("2pc:8", "cuda", ceilings, hints, _resolved=(model, {}))
+    outside = sorted(shapes - census)
+    require(shapes and shapes <= allowed,
+            f"rm=8 captured shapes the planner does not give at the grown candidate caps "
+            f"{hints}: {sorted(shapes - allowed)}")
+    return {
+        "frontier_ceilings": ceilings, "census_captures": len(census),
+        "census_captures_by_ceiling": [p["captures"] for p in plans],
+        "captures": len(made), "shapes": len(shapes), "remakes": len(made) - len(shapes),
+        "census_not_captured": len(census - shapes), "outside_after_cand_growth": outside,
+        "grown_census_shapes": len(allowed), "cand_grown_caps": sorted(hints.items()),
+        "budget": plans[-1]["budget"],
+    }
+
+
+def lint_phase(model, cold_line: dict) -> None:
+    """Read the lint runs :func:`start_lint` began: each exits 0 with an
+    ``ok`` report, and the whole sweep compiled every CUDA source (no
+    ``cuda:`` surface skipped); emit each kernel's resources as ``ptxas``
+    reported them, the lint's seconds and the rm=8 census check."""
+    t0 = time.perf_counter()
+    reports = {}
+    try:
+        for name, (proc, out, err) in LINT.items():
+            try:
+                rc = proc.wait(timeout=LINT_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                rc = None
+            out.seek(0)
+            err.seek(0)
+            text, log = out.read(), err.read()
+            require(rc == 0, f"lint {name}: exit {rc}\n{text[-4000:]}\n{log[-4000:]}")
+            report = json.loads(text)
+            require(report["ok"] and not report["errors"], f"lint {name}: {text[-4000:]}")
+            reports[name] = report
+    finally:
+        stop_lint()
+    cuda = {s["name"]: s for s in reports["full"]["surfaces"] if s["name"].startswith("cuda:")}
+    require(sorted(cuda) == sorted(f"cuda:{n}" for n in _cuda.SOURCES),
+            f"lint: CUDA surfaces {sorted(cuda)}")
+    require(not any(s["skipped"] for s in cuda.values()),
+            f"lint: a CUDA surface skipped: {[(n, s['skipped']) for n, s in cuda.items()]}")
+    kernels = [{"source": f"stateright_tpu_torch/csrc/{n[len('cuda:'):]}.cu", **k}
+               for n, s in cuda.items() for k in s["detail"]["kernels"]]
+    require(kernels, "lint: ptxas reported no kernel")
+    emit({
+        "phase": "lint", "nvidia_smi": SMI, "kernels": kernels,
+        "lint_s": {name: r["elapsed_s"] for name, r in reports.items()},
+        "nvcc_s": {n: s["detail"]["nvcc_s"] for n, s in cuda.items()},
+        "surfaces_s": {name: {s["name"]: s["seconds"] for s in r["surfaces"]}
+                       for name, r in reports.items()},
+        "census_rm8": census_rm8(model, cold_line),
+        "wait_s": time.perf_counter() - t0,
+    })
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5015,16 +5145,19 @@ def main() -> int:
     try:
         return run_phases()
     finally:
+        stop_lint()
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
 
 def run_phases() -> int:
     device_phase()
+    start_lint()
     # The command lines first, while this process holds little of the card.
     cli_launches = cli_phase()
     service_launches, fleet_launches = service_and_fleet_phases()
     small_phase()
     model, checker, launches, ladder = main_path_phase()
+    lint_phase(model, checker.metrics())
     WITNESS["rm8"] = witness_times(checker, "rm=8")
     new_paths = {
         "checkpoint_rm8": checkpoint_rm8_phase(model, checker),

@@ -1,7 +1,22 @@
-"""Static checks of a model spec before it reaches the card.
+"""stpu-lint for the port: static checks of the shipped model kernels' aten
+graphs, the CUDA sources, the capture plans and the package source.
 
-The port's smallest counterpart of ``stateright_tpu/analysis``: only the
-admission mode of its ``cli.py`` (``admission.py``), which the checker
-service runs in a subprocess at submit. The reference's jaxpr, lowering and
-compile-plan rules (STPU001-008) have no meaning before ROADMAP A10d.
+Counterpart of ``stateright_tpu/analysis``. CLI: ``python -m
+stateright_tpu_torch.analysis`` (wrapped by
+``stateright_tpu_torch/tools/stpu_lint.py``, which the checker service runs
+at submit with ``--admission SPEC --json``); library entry:
+:func:`run_lint`. The rules and what each means on CUDA are in
+``rules.py``.
 """
+
+from .rules import (  # noqa: F401
+    MAX_CAPTURES,
+    RULES,
+    Finding,
+    Rule,
+    Waiver,
+    WaiverError,
+    apply_waivers,
+    load_waivers,
+)
+from .cli import DEFAULT_WAIVERS, main, run_lint  # noqa: F401

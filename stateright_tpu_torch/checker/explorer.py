@@ -61,6 +61,7 @@ from urllib.parse import parse_qs
 
 import torch
 
+from ..backend import card_of, make_current
 from ..core import Expectation
 from ..core import Model as _BaseModel
 from ..fingerprint import fingerprint
@@ -134,9 +135,7 @@ class ExplorerApp:
         device = getattr(checker, "_device", None)
         #: The index of the card the checker runs on, selected by every
         #: thread that takes the lock (None: the host, or the CPU).
-        self._card = None
-        if device is not None and device.type == "cuda":
-            self._card = torch.cuda.current_device() if device.index is None else device.index
+        self._card = None if device is None else card_of(device)
         # The live metrics ring of this session: each
         # /.jobs/interactive/metrics.json poll appends one sample, so a
         # polling dashboard builds the series it charts.
@@ -148,8 +147,7 @@ class ExplorerApp:
     def _locked(self):
         """The app's lock, held with the checker's card selected."""
         with self._lock:
-            if self._card is not None:
-                torch.cuda.set_device(self._card)
+            make_current(self._card)
             yield
 
     # --- handlers ---------------------------------------------------------

@@ -248,36 +248,21 @@ def _fmt_value(v: float) -> str:
 _BUILD_INFO_LABELS: Optional[Dict[str, str]] = None
 
 
-def _tree_hash() -> str:
-    """A content hash of the port package's Python and CUDA sources."""
-    import hashlib
-    import os
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    digest = hashlib.sha256()
-    for base, dirs, files in os.walk(root):
-        dirs.sort()
-        for name in sorted(files):
-            if name.endswith((".py", ".cu", ".cuh")):
-                path = os.path.join(base, name)
-                digest.update(os.path.relpath(path, root).encode())
-                with open(path, "rb") as fh:
-                    digest.update(fh.read())
-    return digest.hexdigest()
-
-
 def build_info_sample(platform: Optional[str] = None) -> Sample:
     """The ``stpu_build_info`` identity gauge (value always 1; the
     standard Prometheus *info*-metric idiom): ``platform`` (``cuda`` when
     a card is present unless the caller knows better), ``torch``
-    (version), and ``tree`` — a content hash of the package's sources, so
-    a scrape ties metrics to the exact source that ran."""
+    (version), and ``tree`` — the package-tree content hash the stpu-lint
+    cache keys by (``analysis/cache.tree_hash``), so a scrape and a lint
+    verdict name the exact source that ran."""
     global _BUILD_INFO_LABELS
     import torch
 
     if _BUILD_INFO_LABELS is None:
         try:
-            tree = _tree_hash()[:12]
+            from ..analysis.cache import tree_hash
+
+            tree = tree_hash()[:12]
         except OSError:  # identity is best-effort
             tree = "unknown"
         _BUILD_INFO_LABELS = {
@@ -285,7 +270,9 @@ def build_info_sample(platform: Optional[str] = None) -> Sample:
             "tree": tree,
         }
     if platform is None:
-        platform = "cuda" if torch.cuda.is_available() else "cpu"
+        from ..backend import platform_label
+
+        platform = platform_label()
     return (
         "stpu_build_info",
         {"platform": str(platform), **_BUILD_INFO_LABELS},

@@ -42,6 +42,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..backend import make_current, rank_device, visible_cards
+
 #: The group's collective timeout when the caller gives none, in seconds.
 DEFAULT_TIMEOUT_S = 300.0
 #: Coordinator hosts on this machine's loopback interface.
@@ -60,22 +62,6 @@ def choose_backend(device_type: str, ranks_on_machine: int, cards: int) -> str:
     if device_type != "cuda":
         raise ValueError(f"a rank runs on 'cuda' or 'cpu', not {device_type!r}")
     return "nccl" if ranks_on_machine <= cards else "gloo"
-
-
-def rank_device(process_id: int, device: Union[None, str, torch.device] = None) -> torch.device:
-    """Rank ``process_id``'s device: ``cuda:(process_id % device_count)``
-    unless ``device`` names one (an index of its own, or the CPU). Raises
-    when a card is asked for and there is none."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("a rank asked for a CUDA device and none is available; "
-                               "pass device='cpu' to run the rank on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", process_id % torch.cuda.device_count())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
-    return dev
 
 
 class Group:
@@ -230,15 +216,13 @@ def initialize(coordinator_address: str, num_processes: int, process_id: int, *,
     dev = rank_device(process_id, device)
     if backend is None:
         local = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
-        cards = torch.cuda.device_count() if dev.type == "cuda" else 0
-        backend = choose_backend(dev.type, local, cards)
+        backend = choose_backend(dev.type, local, visible_cards(dev))
     if backend == "gloo" and coordinator_address.rsplit(":", 1)[0] in LOOPBACK:
         # gloo binds the interface its host name resolves to, which a
         # machine without a network may not have; ranks that meet on the
         # loopback address talk over it.
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    make_current(dev)
     dist.init_process_group(
         backend, init_method=f"tcp://{coordinator_address}", world_size=num_processes,
         rank=process_id, timeout=datetime.timedelta(seconds=timeout_s))

@@ -95,7 +95,7 @@ import numpy as np
 import torch
 
 from .. import graphs, native, obs
-from ..backend import resolve_device
+from ..backend import resolve_device, visible_cards
 from ..checker.base import Checker
 from ..checkpoint import (
     AutoCheckpointer,
@@ -185,7 +185,7 @@ def default_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
         return Mesh([group.devices[r] for r in ranks], ranks=ranks, rank=group.rank)
     dev = resolve_device(device)
     if n_devices is None:
-        n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+        n_devices = max(visible_cards(dev), 1)
     if n_devices < 1:
         raise ValueError(f"a mesh needs at least one shard, got {n_devices}")
     return Mesh([dev] * n_devices)

@@ -46,9 +46,9 @@ batch jobs leaves ``torch.cuda.is_initialized()`` False. Only workers, the
 admission check and the prober (all subprocesses) start a device.
 
 Differences from the reference, each forced by the port: the admission
-flight-check runs the port's ``analysis/admission.py`` (the spec resolves
-in a fresh process to a packed model ``spawn_xla`` accepts; the
-reference's jaxpr rules STPU001-008 wait for ROADMAP A10d); CUDA graphs
+flight-check runs the port's own stpu-lint (``tools/stpu_lint.py
+--admission SPEC --json``: the spec's packed interface and checker, its
+kernels' aten graphs and its capture census); CUDA graphs
 live in one process, so no program cache crosses processes and
 ``compile_cache`` keeps its field and environment export with no other
 meaning; compile-on-admit (``warm_compiles``) is a background build of the
@@ -81,6 +81,7 @@ from ..obs import (
     new_trace_id,
     resolve_tracer,
 )
+from ..tools import stpu_lint as _stpu_lint
 from . import registry
 from .journal import Journal, read_journal
 
@@ -138,14 +139,10 @@ DEFAULT_SHED_THRESHOLDS = {
 }
 
 _WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "worker.py")
-#: The admission flight-check entry point (``analysis/admission.py``'s
-#: ``--admission`` mode). A subprocess: the spec resolves (and a user
-#: family imports) there, never in the service process.
-_LINT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "analysis",
-    "admission.py",
-)
+#: The admission flight-check entry point (the port's stpu-lint wrapper,
+#: run with ``--admission SPEC --json``). A subprocess: the spec resolves
+#: (and a user family imports) there, never in the service process.
+_LINT = _stpu_lint.__file__
 #: Compile-on-admit: a user family's first admission builds the kernel
 #: libraries (``ops/_cuda.py`` run as a script) in a background
 #: subprocess, so the tenant's first real job does not pay the ``nvcc``
@@ -213,12 +210,13 @@ class ServiceConfig:
     #: pays full plugin init in a throwaway subprocess, exactly like
     #: ``backend.ensure_live_backend``'s probe.
     probe_argv: Optional[Sequence[str]] = None
-    # -- admission flight-check (analysis/admission.py --admission) --------
+    # -- admission flight-check (tools/stpu_lint.py --admission) ------------
     #: Check a spec before the pool schedules it on the device -- the gate
     #: user-submitted specs (STPU_FAMILIES) pass through: in a fresh
     #: subprocess the spec must resolve to a packed model that
-    #: ``spawn_xla`` accepts. A per-service memo makes repeat submissions
-    #: of a shipped spec free.
+    #: ``spawn_xla`` accepts, whose kernels pass stpu-lint's rules and whose
+    #: capture plan fits its budget. A per-service memo makes repeat
+    #: submissions of a shipped spec free.
     admission_lint: bool = True
     lint_timeout_s: float = 240.0
     # -- QoS & overload (docs/service.md "QoS & overload") -----------------
@@ -1411,7 +1409,7 @@ class CheckerService:
 
     def _admission_verdict(self, spec: str) -> Dict[str, Any]:
         """One spec's admission flight-check verdict (memoized per
-        service): ``analysis/admission.py --admission`` run in a
+        service): ``tools/stpu_lint.py --admission`` run in a
         subprocess. The
         verdict dict rides into ``Job.lint`` (and so the job snapshot
         and ``/.pool``). ``ok`` is tri-state: True/False are the

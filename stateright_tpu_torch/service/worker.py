@@ -74,19 +74,13 @@ def _resolve_device(args):
     ``--platform cpu``, else the card (``--device N`` selecting one)."""
     import torch
 
-    from stateright_tpu_torch.backend import resolve_device
+    from stateright_tpu_torch.backend import ordinal_device
 
     if args.engine == "host" or args.platform == "cpu":
         return torch.device("cpu"), None
     if args.platform != "default":
         raise SystemExit(f"--platform must be 'default' or 'cpu', got {args.platform!r}")
-    device = resolve_device(None)
-    label = None
-    if args.device is not None and 0 <= args.device < torch.cuda.device_count():
-        device = torch.device("cuda", args.device)
-        label = str(device)
-        torch.cuda.set_device(device)
-    return device, label
+    return ordinal_device(args.device)
 
 
 def _build_kernels(device) -> float:

@@ -124,6 +124,34 @@ def test_no_device_raises_without_cuda(monkeypatch):
         port.PackedTwoPhaseSys(3).checker().spawn_xla(device="cuda")
 
 
+def test_the_backend_makes_every_decision_on_the_cards(monkeypatch):
+    """``backend.py`` answers every question that rests on the cards, so
+    that no caller branches on a count of them: the CPU has none and
+    selects none; on a card, the count, the index and the selection."""
+    from stateright_tpu_torch import backend
+
+    cpu = torch.device("cpu")
+    selected = []
+    monkeypatch.setattr(torch.cuda, "set_device", selected.append)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert (backend.visible_cards(cpu), backend.card_of(cpu)) == (0, None)
+    assert backend.platform_label() == "cpu"
+    backend.make_current(cpu)
+    backend.make_current(None)
+    assert selected == []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    card = torch.device("cuda")
+    assert backend.platform_label() == "cuda"
+    assert backend.visible_cards(card) == 2
+    assert (backend.card_of(card), backend.card_of(torch.device("cuda", 0))) == (1, 0)
+    backend.make_current(1)
+    backend.make_current(torch.device("cuda", 0))
+    assert selected == [1, torch.device("cuda", 0)]
+    assert backend.rank_device(3) == torch.device("cuda", 1)
+
+
 def test_rejects_models_without_the_packed_protocol():
     with pytest.raises(TypeError, match="PackedModel"):
         port.TwoPhaseSys(3).checker().spawn_xla(**CPU)
@@ -193,8 +221,8 @@ def test_port_runs_no_script_of_the_reference_package(path):
 def test_walks_cover_the_fleet_and_the_tools():
     """The two walks above glob the whole package: the fleet, the port's
     tools (the chaos harness, the trace bundle, the graph memory probe) and
-    the native host kit, the rank mesh's process group and its worker are
-    among the files they check."""
+    the native host kit, the rank mesh's process group and its worker, and
+    the lint package with its wrapper are among the files they check."""
     walked = {str(p.relative_to(ROOT)) for p in (ROOT / "stateright_tpu_torch").rglob("*.py")}
     assert {"stateright_tpu_torch/service/fleet.py",
             "stateright_tpu_torch/tools/__init__.py",
@@ -204,7 +232,11 @@ def test_walks_cover_the_fleet_and_the_tools():
             "stateright_tpu_torch/native/__init__.py",
             "stateright_tpu_torch/parallel/distributed.py",
             "stateright_tpu_torch/tools/mesh_worker.py",
-            "stateright_tpu_torch/_build.py"} <= walked
+            "stateright_tpu_torch/_build.py",
+            "stateright_tpu_torch/tools/stpu_lint.py",
+            *(f"stateright_tpu_torch/analysis/{m}.py" for m in (
+                "__init__", "__main__", "astlint", "cache", "census", "cli", "fx_lint",
+                "rules", "surfaces"))} <= walked
 
 
 class _SkipBase:
